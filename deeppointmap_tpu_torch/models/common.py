@@ -1,0 +1,92 @@
+"""Shared network blocks, channel-last (port of
+deeppointmap_tpu/models/common.py).
+
+Submodules are named after the Flax scopes (`dense{i}`, `norm{i}`,
+`in_proj_weight`, `out_proj`) so that a Flax checkpoint maps onto the
+state dict by renaming alone (models/weights.py). LayerNorm uses Flax's
+epsilon, 1e-6.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+LN_EPS = 1e-6
+
+
+class MLP(nn.Module):
+    """Linear-LayerNorm-ReLU stack == reference `build_mlp(norm='ln')`
+    (network/encoder/utils.py:358-413), acting on the last axis."""
+
+    def __init__(self, in_channel: int, channels: Sequence[int],
+                 bias: bool = True, drop_last_act: bool = False):
+        super().__init__()
+        self.n = len(channels)
+        self.drop_last_act = drop_last_act
+        for i, ch in enumerate(channels):
+            self.add_module(f"dense{i}", nn.Linear(in_channel, ch, bias=bias))
+            self.add_module(f"norm{i}", nn.LayerNorm(ch, eps=LN_EPS))
+            in_channel = ch
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = getattr(self, f"norm{i}")(getattr(self, f"dense{i}")(x))
+            if not (self.drop_last_act and i == self.n - 1):
+                x = F.relu(x)
+        return x
+
+
+class MultiHeadAttention(nn.Module):
+    """torch `nn.MultiheadAttention` arithmetic (packed q|k|v in-projection)
+    written out with einsum and softmax as in the JAX package. `key_valid`
+    (B, N_k) masks logits to -1e9; every row has a valid key."""
+
+    def __init__(self, emb_dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * emb_dim, emb_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * emb_dim))
+        self.out_proj = nn.Linear(emb_dim, emb_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, q, k, v, key_valid=None):
+        b, n_q, c = q.shape
+        n_k = k.shape[1]
+        h = self.num_heads
+        d = c // h
+        w, bias = self.in_proj_weight, self.in_proj_bias
+        q_p = F.linear(q, w[:c], bias[:c]).reshape(b, n_q, h, d)
+        k_p = F.linear(k, w[c:2 * c], bias[c:2 * c]).reshape(b, n_k, h, d)
+        v_p = F.linear(v, w[2 * c:], bias[2 * c:]).reshape(b, n_k, h, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / math.sqrt(d)
+        if key_valid is not None:
+            logits = torch.where(key_valid[:, None, None, :], logits,
+                                 torch.full_like(logits, -1e9))
+        attn = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v_p).reshape(b, n_q, c)
+        return self.out_proj(out)
+
+
+def sine_pos_embedding(xyz: torch.Tensor, emb_dim: int,
+                       temperature: float = 10000.0,
+                       scale: float = math.pi) -> torch.Tensor:
+    """Sine/cos embedding of coordinates, (B, N, 3) -> (B, N, emb_dim),
+    zero-padding the emb_dim % 6 leftover channels (reference:
+    network/decoder/descriptor_attention.py:66-83)."""
+    in_dim = xyz.shape[-1]
+    num_feats = emb_dim // in_dim // 2 * 2
+    pad = emb_dim - num_feats * in_dim
+    dim_t = torch.arange(num_feats, dtype=torch.float32, device=xyz.device)
+    dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_feats)
+    pos_div = (xyz.float() * scale)[..., None] / dim_t   # (B, N, 3, nf)
+    emb = torch.stack([torch.sin(pos_div[..., 0::2]),
+                       torch.cos(pos_div[..., 1::2])], dim=-1)
+    emb = emb.reshape(*xyz.shape[:-1], num_feats * in_dim)
+    if pad:
+        emb = F.pad(emb, (0, pad))
+    return emb

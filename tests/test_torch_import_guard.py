@@ -1,0 +1,63 @@
+"""The port stands alone: no module of deeppointmap_tpu_torch imports JAX,
+Flax or the JAX package (deeppointmap_tpu), at run time or in its source."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+PORT = Path(__file__).resolve().parent.parent / "deeppointmap_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py"))
+MODULES = sorted(
+    ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
+        ".__init__") for p in SOURCES)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax") or top == "deeppointmap_tpu"
+
+
+def test_modules_found():
+    assert "deeppointmap_tpu_torch.slam.engine" in MODULES
+    assert len(MODULES) >= 20
+
+
+def test_importing_every_module_loads_no_jax():
+    """In a fresh interpreter (this one has JAX loaded by conftest)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax') or m.split('.')[0] == 'deeppointmap_tpu')\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(PORT.parent),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
+    p.relative_to(PORT)))
+def test_source_imports_no_jax(path):
+    """Every import statement, at any depth (lazy imports included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_guard_tells_the_prefix_apart():
+    assert _forbidden("deeppointmap_tpu.ops") and _forbidden("jax.numpy")
+    assert not _forbidden("deeppointmap_tpu_torch.ops")

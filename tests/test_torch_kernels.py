@@ -1,0 +1,99 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA device and skips without one.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them: `python -m pytest --noconftest tests/test_torch_kernels.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeppointmap_tpu_torch import kernels
+from deeppointmap_tpu_torch.ops import neighbors, sampling
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """The card, or a skip: CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cloud(b, n, n_valid, seed, scale=20.0):
+    g = np.random.default_rng(seed)
+    xyz = (g.normal(size=(b, n, 3)) * scale).astype(np.float32)
+    valid = np.zeros((b, n), bool)
+    for i in range(b):
+        valid[i, g.permutation(n)[:n_valid]] = True
+    return torch.from_numpy(xyz), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("b,n,n_valid,k", [
+    (1, 16384, 9000, 4096), (4, 4096, 4096, 1024), (2, 1000, 700, 256),
+    (1, 64, 20, 16), (3, 1500, 1500, 1500)])
+def test_fps_bitwise(dev, b, n, n_valid, k):
+    """Indices identical to the plain version (single-rounded distances in
+    the same order, argmax ties to the lowest index)."""
+    xyz, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n + k))
+    before = kernels.FPS.launches
+    idx, sel = sampling.batched_fps(xyz, valid, k)
+    assert kernels.FPS.launches == before + 1
+    ref = sampling.farthest_point_sampling_plain(xyz, valid, k)
+    torch.cuda.synchronize()
+    sel_ref = torch.arange(k, device=dev)[None] < valid.sum(1)[:, None]
+    torch.testing.assert_close(sel, sel_ref, rtol=0, atol=0)
+    torch.testing.assert_close(idx[sel], ref[sel], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,s,k,radius,scale", [
+    (16384, 16384, 17, 0.5, 20.0),      # preprocess sweep, raw meters
+    (4096, 4096, 32, 0.0, 1 / 3.0),     # a level graph, normalized
+    (16384, 4096, 1, 0.0, 20.0),        # infomat 1-NN
+    (777, 301, 3, 0.0, 1.0),            # ragged, FP 3-NN
+    (2500, 999, 7, 0.3, 1.0),           # generic list length
+    (300, 130, 40, 0.0, 1.0),
+    (50, 70, 16, 0.0, 1.0),
+    (3000, 6000, 5, 0.0, 1.0),          # two threads per center
+    (5000, 9000, 32, 0.0, 1.0)])        # one thread per center
+def test_knn_bitwise(dev, n, s, k, radius, scale):
+    """Indices, distances and moments identical to the plain version: both
+    evaluate one fixed order of single-rounded operations. The shapes
+    cover each split of a center's scan over 1, 2, 4 or 8 threads."""
+    pts, valid = (x.to(dev) for x in _cloud(1, n, int(0.8 * n), n + k, scale))
+    centers = pts[:, torch.randperm(n, device=dev)[:s]] if s <= n else None
+    if centers is None:
+        centers = _cloud(1, s, s, k, scale)[0].to(dev)
+    got = neighbors.knn_cuda(pts, centers.contiguous(), k, valid, radius)
+    ref = neighbors.knn_plain(pts, centers.contiguous(), k, valid, radius)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (5 if radius > 0 else 2)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < n
+
+
+def test_knn_tail_carries_sentinel(dev):
+    pts, valid = (x.to(dev) for x in _cloud(1, 100, 5, 0))
+    idx, d2 = neighbors.knn(pts, pts, 12, valid)
+    torch.cuda.synchronize()
+    assert bool((d2[..., 5:] == 1e9).all())
+    assert int(idx.min()) >= 0 and int(idx.max()) < 100
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    pts, valid = (x.to(dev) for x in _cloud(1, 64, 64, 1))
+    with pytest.raises(ValueError):
+        neighbors.knn_cuda(pts.double(), pts, 4, valid)
+    with pytest.raises(ValueError):
+        neighbors.knn_cuda(pts, pts, 65, valid)
+    with pytest.raises(ValueError):
+        sampling.fps_cuda(pts.transpose(1, 2).contiguous().transpose(1, 2),
+                          valid, 8)
+    with pytest.raises(ValueError):
+        sampling.fps_cuda(torch.zeros(1, 16385, 3, device=dev),
+                          torch.ones(1, 16385, dtype=torch.bool, device=dev), 8)
