@@ -33,9 +33,17 @@ class PreprocessConfig(NamedTuple):
     lowpass_std: float = 2.0
     lowpass_flux: int = 4
     norm_ratio: float = 60.0
+    #: when > 0, widen the shared sweep's top-k to this many candidates and
+    #: return them ((B, P, sweep_k) idx + normalized dist2), so that the
+    #: encoder's stage-1 grouping is served from the sweep instead of a
+    #: fresh (npoint0, P) query (models/encoder._group_from_sweep). The
+    #: candidates are ranked under the post-crop validity; later filter
+    #: drops are re-masked when the groups are picked.
+    sweep_k: int = 0
 
     @classmethod
-    def from_transforms(cls, transforms: dict) -> "PreprocessConfig":
+    def from_transforms(cls, transforms: dict,
+                        sweep_k: int = 0) -> "PreprocessConfig":
         """Build from the yaml `transforms:` tree (the keys the host chain
         uses)."""
         t = dict(transforms)
@@ -59,6 +67,7 @@ class PreprocessConfig(NamedTuple):
             kw["lowpass_flux"] = lp["flux"]
         t_norm = t.get("CoordinatesNormalization")
         kw["norm_ratio"] = t_norm["ratio"] if t_norm else 1.0
+        kw["sweep_k"] = sweep_k
         return cls(**kw)
 
 
@@ -75,7 +84,9 @@ def _masked_mean_std(x, mask):
 
 def preprocess(points, valid, cfg: PreprocessConfig):
     """(B, P, 3) raw-meter points + validity (B, P) -> (normalized points,
-    validity). Mask-update equivalents of (reference file:line): distance
+    validity), and with cfg.sweep_k > 0 also the sweep's candidate graph
+    (idx (B, P, sweep_k) int64, dist2 (B, P, sweep_k) in normalized units,
+    invalid candidates at 1e9). Mask-update equivalents of (reference file:line): distance
     crop transforms.py:387-397, statistical outlier removal
     transforms.py:230-253, normal-coherence low-pass transforms.py:256-297,
     coordinate normalization transforms.py:400-407.
@@ -97,9 +108,10 @@ def preprocess(points, valid, cfg: PreprocessConfig):
         dist = torch.sqrt(dot3(pts, pts).double())
         valid = valid & (dist >= cfg.min_dis) & (dist <= cfg.max_dis)
 
-    if cfg.use_outlier or cfg.use_lowpass:
+    if cfg.use_outlier or cfg.use_lowpass or cfg.sweep_k > 0:
         k_shared = max((cfg.normals_num + 1) if cfg.use_lowpass else 0,
-                       (cfg.outlier_neighbors + 1) if cfg.use_outlier else 0)
+                       (cfg.outlier_neighbors + 1) if cfg.use_outlier else 0,
+                       cfg.sweep_k)
         out = filter_sweep(pts, valid, k_shared,
                            cfg.normals_radius if cfg.use_lowpass else 0.0)
         nb_idx, nb_d2 = out[:2]
@@ -123,4 +135,13 @@ def preprocess(points, valid, cfg: PreprocessConfig):
         mu_s, sd_s = _masked_mean_std(s, valid)
         valid = valid & (s > mu_s - cfg.lowpass_std * sd_s)
 
-    return (pts.double() / cfg.norm_ratio).float(), valid
+    pts_n = (pts.double() / cfg.norm_ratio).float()
+    if cfg.sweep_k > 0:
+        # a uniform scale keeps the ranking, so dist2 rescales by ratio^-2
+        # (in float64, rounded once); the 1e9 sentinel is pinned again so
+        # that it stays a sentinel in normalized units
+        d2 = nb_d2[..., :cfg.sweep_k]
+        scaled = (d2.double() / (cfg.norm_ratio * cfg.norm_ratio)).float()
+        d2 = torch.where(d2 >= 1e8, torch.full_like(d2, 1e9), scaled)
+        return pts_n, valid, (nb_idx[..., :cfg.sweep_k], d2)
+    return pts_n, valid

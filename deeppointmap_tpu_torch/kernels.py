@@ -3,8 +3,8 @@
 Each source compiles with `nvcc` into its own shared library with a plain
 C interface, bound with `ctypes`. A library is built at first use into
 `build/kernels/` beside the package (listed in `.gitignore`), under a
-name that carries a hash of its source, so an edited kernel is never
-served from a stale build. `build_all()` starts every `nvcc` at once.
+name that carries a hash of its source and of the headers it includes, so
+an edited kernel is never served from a stale build. `build_all()` starts every `nvcc` at once.
 
 Nothing here runs at import: this module is imported on machines that
 have neither `nvcc` nor a GPU, where the ops take their plain versions.
@@ -46,9 +46,11 @@ class Kernel:
     counts them by the shape key the op wrapper passes; nothing else
     changes either."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, source: str, symbol: str, argtypes,
+                 headers: tuple = ()):
         self.name = name
         self.source = CSRC / source
+        self.headers = tuple(CSRC / h for h in headers)
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
@@ -58,8 +60,8 @@ class Kernel:
         self._lock = threading.Lock()
 
     def _lib_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
+        digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}-{digest[:12]}.so"
 
     def start_build(self):
@@ -114,7 +116,14 @@ FPS = Kernel("fps", "fps.cu", "dpm_fps", [_P, _P, _I, _I, _I, _P, _P])
 #: K2: exact kNN with optional radius moments (csrc/knn.cu).
 KNN = Kernel("knn", "knn.cu", "dpm_knn",
              [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P])
-ALL = (FPS, KNN)
+#: K3: radius-PCA moments (csrc/moments.cu).
+MOMENTS = Kernel("moments", "moments.cu", "dpm_moments",
+                 [_P, _P, _I, _I, _F, _P, _P], headers=("radius.cuh",))
+#: K4: fused sweep, best two per index class + moments (csrc/sweep.cu).
+SWEEP = Kernel("sweep", "sweep.cu", "dpm_sweep",
+               [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+               headers=("radius.cuh",))
+ALL = (FPS, KNN, MOMENTS, SWEEP)
 
 
 def build_all() -> None:

@@ -38,6 +38,33 @@ def _hybrid_from_graph(graph, k: int, radius: float, center_idx=None):
     return torch.where(gd > f32(radius * radius), gi[..., :1], gi)
 
 
+def _group_from_sweep(center_idx, valid, sweep, k: int, radius: float):
+    """Stage-1 hybrid grouping served from the preprocess sweep's candidate
+    lists (data/preprocess.py, sweep_k) instead of a fresh (S, N) query:
+    gather each sampled center's candidates, re-mask them by the FINAL
+    validity (the filters ran after the sweep), pick the k nearest survivors
+    (ties to the earlier candidate), then apply the hybrid radius clamp.
+
+    Equal to hybrid_query whenever fewer than Ks - k of a center's Ks
+    candidates were dropped by the filters; beyond that the tail clamps to
+    the nearest survivor, which max-pooled set abstraction tolerates.
+
+    center_idx (B, S), valid (B, N), sweep = (idx (B, N, Ks), dist2
+    (B, N, Ks) in normalized units, 1e9 for invalid candidates) ->
+    group idx (B, S, k) int64."""
+    cand_idx, cand_d2 = sweep
+    cidx = group_points(cand_idx, center_idx)               # (B, S, Ks)
+    cd2 = group_points(cand_d2, center_idx)
+    ok = group_points(valid, cidx) & (cd2 < 1e8)
+    d2m = torch.where(ok, cd2, torch.full_like(cd2, 1e9))
+    # candidates ascend by distance already, so a stable sort keeps the
+    # earlier of two equal ones, as lax.top_k does
+    gd2, sel = torch.sort(d2m, dim=-1, stable=True)
+    gd2, sel = gd2[..., :k], sel[..., :k]
+    gidx = torch.gather(cidx, -1, sel)
+    return torch.where(gd2 > f32(radius * radius), gidx[..., :1], gidx)
+
+
 def _group(coor, fea, centers, group_idx, radius: float):
     """[grouped features | offsets / radius] (B, S, K, C + 3)."""
     g_coor = (group_points(coor, group_idx) - centers[:, :, None, :]) / radius
@@ -53,12 +80,16 @@ class SetAbstraction(nn.Module):
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.mlp = MLP(in_channel + 3, [in_channel * 2], bias=bias)
 
-    def forward(self, coor, fea, valid, graph=None):
+    def forward(self, coor, fea, valid, sweep=None, graph=None):
         # graph: the previous level's shared kNN over `coor`; the sampled
-        # centers are a subset of its rows
+        # centers are a subset of its rows. sweep: the preprocess sweep's
+        # candidate lists over `coor` (stage 1 only)
         idx, new_valid = batched_fps(coor, valid, self.npoint)
         new_coor = group_points(coor, idx)
-        if graph is not None:
+        if sweep is not None:
+            group_idx = _group_from_sweep(idx, valid, sweep, self.nsample,
+                                          self.radius)
+        elif graph is not None:
             group_idx = _hybrid_from_graph(graph, self.nsample, self.radius,
                                            center_idx=idx)
         else:
@@ -119,11 +150,14 @@ class Stage(nn.Module):
                 radius_list[i], nsample_list[i], in_channel * 2, expansion,
                 bias))
 
-    def forward(self, coor, fea, valid, in_graph=None, graph_k: int = 0):
-        """in_graph: the previous level's shared kNN over the input points
-        (serves the SA query); graph_k > 0 builds this level's own shared
-        kNN over the sampled points, returned as the 4th output."""
-        coor, fea, valid = self.sa(coor, fea, valid, graph=in_graph)
+    def forward(self, coor, fea, valid, sweep=None, in_graph=None,
+                graph_k: int = 0):
+        """sweep / in_graph: the preprocess sweep's candidates, or the
+        previous level's shared kNN, over the input points (either serves
+        the SA query); graph_k > 0 builds this level's own shared kNN over
+        the sampled points, returned as the 4th output."""
+        coor, fea, valid = self.sa(coor, fea, valid, sweep=sweep,
+                                   graph=in_graph)
         graph = knn(coor, coor, graph_k, valid) if graph_k > 0 else None
         for i in range(self.n_irm):
             fea = getattr(self, f"irm{i}")(coor, fea, valid, graph=graph)
@@ -149,7 +183,7 @@ class FeaturePropagation(nn.Module):
 
 
 class Encoder(nn.Module):
-    """forward(points (B, N, 3+), valid (B, N)) -> (coor (B, S, 3),
+    """forward(points (B, N, 3+), valid (B, N)[, sweep]) -> (coor (B, S, 3),
     fea (B, S, out_channel), valid (B, S)). Config fields mirror the yaml
     `encoder:` tree."""
 
@@ -203,7 +237,11 @@ class Encoder(nn.Module):
                    upsample_layers=e.upsample_layers,
                    bias=e.get("bias", True))
 
-    def forward(self, points, valid):
+    def forward(self, points, valid, sweep=None):
+        """sweep: optional (idx (B, N, Ks), dist2 (B, N, Ks)) candidate
+        graph from device preprocessing (sweep_k > 0), in the units of
+        `points`; it serves the FIRST stage's grouping without a fresh
+        (npoint0, N) query."""
         coor = points[..., :3].float()
         fea = self.point_mlp0(points[..., :self.in_channel].float())
         levels = [(coor, fea, valid)]
@@ -215,7 +253,8 @@ class Encoder(nn.Module):
             own = max(self.nsample_list[i][1:], default=0)
             nxt = self.nsample_list[i + 1][0] if i + 1 < n else 0
             c, f, v, graph = getattr(self, f"down{i}")(
-                *levels[-1], in_graph=graph, graph_k=max(own, nxt))
+                *levels[-1], sweep=sweep if i == 0 else None,
+                in_graph=graph, graph_k=max(own, nxt))
             levels.append((c, f, v))
 
         c, f, v = levels[-1]

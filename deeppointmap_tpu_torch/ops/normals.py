@@ -1,10 +1,15 @@
 """Surface normals from radius moments (port of
 deeppointmap_tpu/ops/normals.py).
 
-`filter_sweep` is one K2 call (ops/neighbors.knn with a radius): the
-top-k neighbour graph and the radius-PCA moments come out of one pass over
-the (P, P) distances. The smallest eigenvector comes from the closed-form
-eigenvalues of a symmetric 3x3 matrix (Eberly / Smith).
+`filter_sweep` gives the preprocessing filters their top-k neighbour graph
+and the radius-PCA moments. By default that is one K2 call
+(ops/neighbors.knn with a radius): both come out of one exact pass over the
+(P, P) distances. Two switches, off by default as in the JAX package, route
+it through the other two kernels (ops/sweep.py): `USE_FUSED_SWEEP` takes the
+graph and the moments from K4 (approximate neighbours, float64 moments), and
+`USE_FUSED_MOMENTS` takes the moments from K3 (float64) beside K2's exact
+graph. The smallest eigenvector comes from the closed-form eigenvalues of a
+symmetric 3x3 matrix (Eberly / Smith).
 """
 
 from __future__ import annotations
@@ -14,6 +19,18 @@ import math
 import torch
 
 from deeppointmap_tpu_torch.ops.neighbors import knn
+from deeppointmap_tpu_torch.ops.sweep import (SWEEP_MAX_K, fused_sweep,
+                                              radius_moments)
+
+#: Moments from K3 (csrc/moments.cu), summed in float64 over all points in
+#: the radius, instead of K2's float32 sums; the graph then comes from a
+#: K2 pass without moments. The accuracy option of the JAX package
+#: (USE_PALLAS_MOMENTS there).
+USE_FUSED_MOMENTS = False
+#: Graph and moments from K4 (csrc/sweep.cu) in one pass: neighbours are
+#: approximate (best two per index-mod-128 class), moments as K3's. Takes
+#: precedence over USE_FUSED_MOMENTS (USE_PALLAS_SWEEP in the JAX package).
+USE_FUSED_SWEEP = False
 
 
 def dot3(a, b):
@@ -92,7 +109,32 @@ def normals_from_moments(c, cnt, s, S6) -> torch.Tensor:
 def filter_sweep(pts, valid, k: int, radius: float):
     """ONE (P, P) sweep for the preprocessing filters: the top-k
     neighbour graph and, with radius > 0, the radius-PCA moments.
-    pts (B, P, 3), valid (B, P) -> (idx, dist2[, cnt, s, S6])."""
-    assert k > 0, "filter_sweep needs the neighbour graph"
+    pts (B, P, 3), valid (B, P) -> (idx, dist2[, cnt, s, S6]); k = 0 skips
+    the graph (-> (cnt, s, S6)), radius <= 0 the moments.
+
+    Routing: K4 when USE_FUSED_SWEEP is set and k fits it; K3 for the
+    moments (and K2 without moments for the graph) when USE_FUSED_MOMENTS is
+    set or no graph is asked for; else K2 with its fused moments."""
+    if k <= 0 and radius <= 0:
+        raise ValueError("filter_sweep with nothing to compute")
     pts = pts.float()
+    if k > 0 and USE_FUSED_SWEEP and k <= SWEEP_MAX_K:
+        return fused_sweep(pts, valid, k, max(radius, 0.0))
+    if radius > 0 and (USE_FUSED_MOMENTS or k == 0):
+        moments = radius_moments(pts, valid, radius)
+        if k == 0:
+            return moments
+        return knn(pts, pts, k, valid) + moments
     return knn(pts, pts, k, valid, radius)
+
+
+def radius_normals(xyz, valid, radius: float) -> torch.Tensor:
+    """Unit normals (B, N, 3) by PCA over ALL valid points within `radius`
+    of each point (the reference's Open3D radius search without a
+    neighbour cap, dataloader/transforms.py:271), from K3's moments.
+    Neighbourhoods of fewer than three points get +z; every point is a
+    center, valid or not (callers mask the invalid ones)."""
+    if radius <= 0:
+        raise ValueError(f"radius_normals needs radius > 0 (got {radius})")
+    return normals_from_moments(xyz.float(),
+                                *filter_sweep(xyz, valid, 0, radius))

@@ -1,1 +1,1 @@
-"""The inference engine."""
+"""The inference engine and the SLAM host layer around it."""

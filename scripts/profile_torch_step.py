@@ -1,17 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time of the port's odometry step goes, on one CUDA device.
+"""Where the time of the port's step goes, on one CUDA device.
 
-    python3 scripts/profile_torch_step.py [--steps 5] [--out DIR]
+    python3 scripts/profile_torch_step.py [--path engine|slam] [--steps 5]
+                                          [--warm 24] [--out DIR]
 
-Builds the engine of chip_smoke.py (DeepPointMap-B, device preprocessing,
-int16 upload, info matrix at stride 4) on the same synthetic scans, warms
-it up, then traces `--steps` odometry steps with torch.profiler. Prints one
-JSON line: wall ms per step (host clock, each step ends in a copy to the
-host), device kernel ms per step, the device's busy share (kernel time /
-wall time; overlapping kernels would count twice, and the step runs on
-one stream), the kernel time of K1 (fps) and K2 (knn), and the kernels
-with the most device time; with --out, writes the same to
-DIR/profile_step.json.
+`--path engine` builds the engine of chip_smoke.py (DeepPointMap-B, device
+preprocessing, int16 upload, info matrix at stride 4) on the same synthetic
+scans and times `--steps` odometry steps after a warm-up. `--path slam`
+times `SlamSystem.step` as chip_smoke.py's slam_a runs it (scans read from
+KITTI .bin files, tpu.sweep_reuse and USE_FUSED_SWEEP, the same edge gates)
+after `--warm` steps that build up a map; the scans are read and voxelized
+before the clock starts.
+
+The same frames run twice from the same start (the slam path builds a fresh
+SlamSystem and empties the engine's cache; the step codes of the two passes
+must be equal): first without the profiler, on the host clock (each step
+ends in a copy to the host), then with one torch.profiler trace around
+each step, so that every step has its own device kernel time and launch
+count. The busy share of a step is its device kernel time over its wall time
+from the pass without the profiler (the profiler's own overhead grows with
+the launch count; overlapping kernels would count twice, and the step runs
+on one stream).
+
+Prints one JSON line: per step its code (slam path: `acpt` is a keyframe
+step with scan-to-map registration and the loop check), wall ms, traced wall
+ms, device ms and launches; the means over all steps and per step code; the
+kernel time of K1 (fps), K2 (knn), K3 (moments) and K4 (sweep) a step; and
+the kernels with the most device time. With --out, writes the same to
+DIR/profile_step.json (profile_slam.json for the slam path).
 """
 
 from __future__ import annotations
@@ -20,6 +36,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -42,57 +59,136 @@ def main() -> int:
     from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("engine", "slam"), default="engine")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--warm", type=int, default=24,
+                    help="slam path: steps before the timed ones")
     ap.add_argument("--out", default="")
     opts = ap.parse_args()
     steps = opts.steps
-
-    args = config_from_dict(cs.CONFIG)
-    pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices)
-    engine = InferenceEngine(args, *load_msgpack_weights(cs.WEIGHTS),
-                             preprocess_cfg=PreprocessConfig.from_transforms(
-                                 args.transforms), device="cuda")
-    prev = engine.extract(pts[:1], valid[:1])
-
-    def step(i):
-        nonlocal prev
-        out = engine.odometry_step(pts[i:i + 1], valid[i:i + 1], prev[0][0],
-                                   prev[1][0], pts[i - 1], prev[2][0])
-        prev = out[:3]
-
-    for i in range(1, 3):                       # warm-up
-        step(i)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    wall = []
-    with torch.profiler.profile(activities=acts) as prof:
-        for j in range(steps):
-            t0 = time.perf_counter()
-            step(3 + j % (len(pts) - 3))
-            wall.append((time.perf_counter() - t0) * 1e3)
 
+    if opts.path == "engine":
+        args = config_from_dict(cs.CONFIG)
+        pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices)
+        engine = InferenceEngine(
+            args, *load_msgpack_weights(cs.WEIGHTS),
+            preprocess_cfg=PreprocessConfig.from_transforms(args.transforms),
+            device="cuda")
+        warm = [1, 2]
+        order = [3 + j % (len(pts) - 3) for j in range(steps)]
+
+        def start():
+            prev = engine.extract(pts[:1], valid[:1])
+
+            def step(i):
+                nonlocal prev
+                out = engine.odometry_step(pts[i:i + 1], valid[i:i + 1],
+                                           prev[0][0], prev[1][0],
+                                           pts[i - 1], prev[2][0])
+                prev = out[:3]
+                return "step"
+            return step
+    else:
+        from deeppointmap_tpu_torch.data.dataset import BasicAgent
+        from deeppointmap_tpu_torch.ops import normals
+        from deeppointmap_tpu_torch.pipeline import infer
+        from deeppointmap_tpu_torch.slam.system import SlamSystem
+
+        cs.CONFIG["slam_system"].update(cs.SYNTHETIC_GATES)
+        args = config_from_dict(cs.CONFIG, multi_thread=False)
+        args.tpu.sweep_reuse = True
+        normals.USE_FUSED_SWEEP = True
+        n_frames = opts.warm + steps
+        tmp = tempfile.TemporaryDirectory()
+        cs.write_bins(cs.render_raw(syn, n_frames)[0], tmp.name + "/seq")
+        engine = InferenceEngine(
+            args, *load_msgpack_weights(cs.WEIGHTS),
+            preprocess_cfg=infer.device_preprocess_config(args),
+            device="cuda")
+        agent = BasicAgent(root=tmp.name + "/seq", reader="auto")
+        agent.set_independent(infer.make_infer_transform(args))
+        data = [agent[i] for i in range(n_frames)]
+        warm = list(range(opts.warm))
+        order = list(range(opts.warm, n_frames))
+        passes = iter("ab")
+
+        def start():
+            engine.invalidate_device_cache()
+            system = SlamSystem(args, engine, system_id=1,
+                                logger_dir=f"{tmp.name}/out_{next(passes)}")
+            return lambda i: system.step(data[i]).name
+
+    # pass 1: the host clock, no profiler
+    step = start()
+    for i in warm:
+        step(i)
+    codes, plain_wall = [], []
+    for i in order:
+        t0 = time.perf_counter()
+        codes.append(step(i))
+        plain_wall.append((time.perf_counter() - t0) * 1e3)
+
+    # pass 2: the same frames, one profiler trace a step
+    step = start()
+    for i in warm:
+        step(i)
     by_name = defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name][0] += ev.device_time / 1e3     # us -> ms
-            by_name[ev.name][1] += 1
-    device_ms = sum(v[0] for v in by_name.values()) / steps
+    wall, device, launches, traced_codes = [], [], [], []
+    for i in order:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            traced_codes.append(step(i))
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms, n = 0.0, 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name][0] += ev.device_time / 1e3     # us -> ms
+                by_name[ev.name][1] += 1
+                ms += ev.device_time / 1e3
+                n += 1
+        device.append(ms)
+        launches.append(n)
+    if traced_codes != codes:
+        raise AssertionError(f"the two passes took different decisions: "
+                             f"{codes} {traced_codes}")
+
+    mean = lambda xs: sum(xs) / len(xs)
+    by_code = {}
+    for code in sorted(set(codes)):
+        sel = [j for j, c in enumerate(codes) if c == code]
+        w, d = mean([plain_wall[j] for j in sel]), mean(
+            [device[j] for j in sel])
+        by_code[code] = dict(steps=len(sel), wall_ms=w, device_ms=d,
+                             launches=mean([launches[j] for j in sel]),
+                             device_busy_share=d / w)
     share = lambda key: sum(v[0] for n, v in by_name.items()
                             if key in n) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
-    out = dict(card=smi, steps=steps, wall_ms_per_step=sum(wall) / steps,
-               wall_ms=wall, device_kernel_ms_per_step=device_ms,
-               device_busy_share=device_ms / (sum(wall) / steps),
+    out = dict(card=smi, path=opts.path, steps=steps, step_codes=codes,
+               wall_ms=plain_wall, wall_ms_per_step=mean(plain_wall),
+               traced_wall_ms=wall, device_kernel_ms=device,
+               launches=launches,
+               device_kernel_ms_per_step=mean(device),
+               device_busy_share=mean(device) / mean(plain_wall),
+               by_code=by_code,
                fps_kernel_ms_per_step=share("fps_kernel"),
                knn_kernel_ms_per_step=share("knn_kernel"),
-               kernels_per_step=sum(v[1] for v in by_name.values()) / steps,
+               moments_kernel_ms_per_step=share("moments_kernel"),
+               sweep_kernel_ms_per_step=share("sweep_kernel"),
+               kernels_per_step=mean(launches),
                top=[dict(name=n[:90], ms_per_step=v[0] / steps,
                          calls_per_step=v[1] / steps) for n, v in top])
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
-        with open(os.path.join(opts.out, "profile_step.json"), "w") as f:
+        name = "profile_step.json" if opts.path == "engine" \
+            else "profile_slam.json"
+        with open(os.path.join(opts.out, name), "w") as f:
             json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

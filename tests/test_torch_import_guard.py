@@ -1,5 +1,6 @@
 """The port stands alone: no module of deeppointmap_tpu_torch imports JAX,
-Flax or the JAX package (deeppointmap_tpu), at run time or in its source."""
+Flax or the JAX package (deeppointmap_tpu), at run time or in its source;
+neither do the scripts that drive it on the card."""
 
 import ast
 import os
@@ -11,6 +12,9 @@ import pytest
 
 PORT = Path(__file__).resolve().parent.parent / "deeppointmap_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py"))
+ROOT = PORT.parent
+#: the scripts that run on a machine without JAX
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
         ".__init__") for p in SOURCES)
@@ -22,8 +26,13 @@ def _forbidden(name: str) -> bool:
 
 
 def test_modules_found():
-    assert "deeppointmap_tpu_torch.slam.engine" in MODULES
-    assert len(MODULES) >= 20
+    for name in ("slam.engine", "slam.system", "slam.modules",
+                 "slam.pose_graph", "slam.optimizer", "slam.recoder",
+                 "slam.utils", "utils.se3", "pipeline.infer",
+                 "pipeline.common", "data.dataset", "data.readers",
+                 "ops.sweep", "ops.normals", "kernels", "config"):
+        assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
+    assert len(MODULES) >= 34
 
 
 def test_importing_every_module_loads_no_jax():
@@ -42,8 +51,8 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
-    p.relative_to(PORT)))
+@pytest.mark.parametrize("path", SOURCES + SCRIPTS, ids=lambda p: str(
+    p.relative_to(PORT if PORT in p.parents else ROOT)))
 def test_source_imports_no_jax(path):
     """Every import statement, at any depth (lazy imports included)."""
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -56,6 +65,21 @@ def test_source_imports_no_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_cli_needs_no_yaml():
+    """PyYAML is imported only where a YAML file is read, so the entry
+    point and the smoke script load on a machine without it."""
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "import deeppointmap_tpu_torch.pipeline.infer\n"
+        "import deeppointmap_tpu_torch.config as c\n"
+        "c.load_config([])\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_guard_tells_the_prefix_apart():

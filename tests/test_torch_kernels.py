@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from deeppointmap_tpu_torch import kernels
-from deeppointmap_tpu_torch.ops import neighbors, sampling
+from deeppointmap_tpu_torch.ops import neighbors, sampling, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +97,82 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         sampling.fps_cuda(torch.zeros(1, 16385, 3, device=dev),
                           torch.ones(1, 16385, dtype=torch.bool, device=dev), 8)
+
+
+def _ulp_close(a, r):
+    """Equal to within one float32 ulp of the reference."""
+    a, r = a.double(), r.double()
+    ulp = torch.ldexp(torch.ones_like(r),
+                      torch.frexp(r.abs().clamp(min=1e-30))[1] - 24)
+    assert bool(((a - r).abs() <= ulp).all()), float((a - r).abs().max())
+
+
+@pytest.mark.parametrize("b,n,n_valid,radius,scale", [
+    (1, 16384, 10000, 0.5, 20.0),       # the preprocess shape, raw meters
+    (2, 1000, 37, 2.0, 5.0),            # N not a multiple of 128, few valid
+    (3, 130, 130, 1.0, 1.0),
+    (1, 3, 2, 1.0, 1.0)])
+def test_moments_match_plain(dev, b, n, n_valid, radius, scale):
+    """K3 against its plain version: cnt equal, s and S6 within one float32
+    ulp (both sum exact float64 products and round once; only the order of
+    the float64 additions differs)."""
+    pts, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n, scale))
+    before = kernels.MOMENTS.launches
+    got = sweep.radius_moments(pts, valid, radius)
+    assert kernels.MOMENTS.launches == before + 1
+    ref = sweep.radius_moments_plain(pts, valid, radius)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+    _ulp_close(got[1], ref[1])
+    _ulp_close(got[2], ref[2])
+
+
+@pytest.mark.parametrize("b,n,n_valid,k,radius,scale", [
+    (1, 16384, 10000, 41, 0.5, 20.0),   # sweep_reuse shape, raw meters
+    (1, 16384, 10000, 17, 0.0, 20.0),
+    (2, 1000, 37, 41, 2.0, 5.0),        # N not a multiple of 128, few valid
+    (3, 130, 130, 128, 0.0, 1.0),       # fewer than two points a class
+    (1, 5, 3, 7, 1.0, 1.0)])            # k above N
+def test_sweep_bitwise(dev, b, n, n_valid, k, radius, scale):
+    """K4 against its plain version: indices and distances identical (the
+    same class rule on the same single-rounded distances), moments as K3's;
+    indices stay in range."""
+    pts, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n + k, scale))
+    before = kernels.SWEEP.launches
+    got = sweep.fused_sweep(pts, valid, k, radius)
+    assert kernels.SWEEP.launches == before + 1
+    ref = sweep.fused_sweep_plain(pts, valid, k, radius)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (5 if radius > 0 else 2)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < n
+    if radius > 0:
+        torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+        _ulp_close(got[3], ref[3])
+        _ulp_close(got[4], ref[4])
+
+
+def test_sweep_members_agree_with_knn(dev):
+    """K2, K3 and K4 decide radius membership on the same bits: equal
+    counts; K4's nearest neighbour is the exact one."""
+    pts, valid = (x.to(dev) for x in _cloud(1, 4096, 3000, 5, 3.0))
+    k2 = neighbors.knn(pts, pts, 8, valid, 0.7)
+    k3 = sweep.radius_moments(pts, valid, 0.7)
+    k4 = sweep.fused_sweep(pts, valid, 8, 0.7)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k2[2], k3[0], rtol=0, atol=0)
+    torch.testing.assert_close(k4[2], k3[0], rtol=0, atol=0)
+    torch.testing.assert_close(k4[0][..., :2], k2[0][..., :2], rtol=0, atol=0)
+
+
+def test_sweep_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    pts, valid = (x.to(dev) for x in _cloud(1, 64, 64, 1))
+    with pytest.raises(ValueError):
+        sweep.fused_sweep_cuda(pts, valid, 129)
+    with pytest.raises(ValueError):
+        sweep.fused_sweep_cuda(pts.double(), valid, 4)
+    with pytest.raises(ValueError):
+        sweep.radius_moments_cuda(pts, valid[:, :32], 1.0)
+    with pytest.raises(ValueError):
+        sweep.radius_moments(pts, valid, 0.0)
