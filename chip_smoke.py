@@ -7,10 +7,14 @@ Phases, in order, each printing one JSON line:
   device  the card (nvidia-smi name and power limit); fails without CUDA.
   build   nvcc builds the four kernels from csrc/, all at once.
   k1      K1 (FPS) against its plain version at the encoder's five stage
-          shapes (B=1) and at 16384 -> 4096 with B=4: identical indices.
+          shapes (B=1) and at 16384 -> 4096 with B=4: identical indices;
+          also on duplicated points (ties), on a scan that does not fill
+          the cluster's partition, and with fewer valid points than k.
   k2      K2 (kNN + radius moments) against its plain version at every
-          shape a path gives it: identical neighbour sets, dist2 and
-          moments within the stated tolerances.
+          shape a path gives it and at the sweep-reuse width (k = 41 with
+          moments): identical neighbour sets and dist2, cnt equal and
+          moments within one float32 ulp; also at k = 65 and 128, on
+          duplicated points, and with fewer valid points than k.
   k3      K3 (radius moments over all points) against its plain version at
           (1, 16384, r 0.5 m) and at a small odd shape: cnt equal, s and S6
           within one float32 ulp.
@@ -39,8 +43,9 @@ and read just after; every kernel of a path must have launched in it. Then
 one JSON line with every kernel's numbers, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}; with OUT_DIR, the kernel entries also go
 to OUT_DIR/chip_smoke.json. Any failure raises and the script exits
-non-zero. TF32 is off throughout: distances at +-60 m need full f32. Times
-are medians of CUDA events after a warm-up.
+non-zero. TF32 is off throughout: distances at +-60 m need full f32. A
+kernel's time is that of a run of launches between one pair of CUDA events
+(`timed`), with the wrapper's host time a call beside it.
 """
 
 from __future__ import annotations
@@ -143,19 +148,32 @@ def rotation_deg(A, B) -> float:
     return float(np.degrees(2 * np.arcsin(min(1.0, chord / (2 * np.sqrt(2))))))
 
 
-def timed_ms(torch, fn, reps: int) -> float:
-    """Median of CUDA-event times over `reps` calls after one warm-up."""
+def timed(torch, fn, reps: int, rounds: int = 3) -> tuple[float, float]:
+    """(device ms a call, host microseconds a call) of `fn`: after a
+    warm-up, `reps` calls between ONE pair of CUDA events, so that the
+    wrapper's host time overlaps the device's work as it does on a path;
+    the median of `rounds` such runs. The host time is the clock around the
+    calls before anything waits for the device: where it is about the
+    device's figure, the row shows the wrapper, not the kernel."""
     fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    ms, host = [], []
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host.append((time.perf_counter() - t0) / reps * 1e6)
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        ms.append(start.elapsed_time(end) / reps)
+    return float(np.median(ms)), float(np.median(host))
+
+
+def timed_ms(torch, fn, reps: int, rounds: int = 3) -> float:
+    return timed(torch, fn, reps, rounds)[0]
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -198,19 +216,20 @@ def write_bins(scans, root: str) -> None:
 
 # ------------------------------------------------------------------- K1
 def check_fps(torch, sampling, xyz, valid, k):
-    """One K1 shape against the plain version; returns its entry."""
+    """One K1 shape against the plain version, every slot of it (beyond the
+    valid points both repeat index 0); returns its entry."""
     b, n, _ = xyz.shape
     idx, sel = sampling.batched_fps(xyz, valid, k)
     ref = sampling.farthest_point_sampling_plain(xyz, valid, k)
     torch.cuda.synchronize()
-    err = int((idx[sel] - ref[sel]).abs().max()) if bool(sel.any()) else 0
+    err = int((idx - ref).abs().max())
     if err != 0:
         raise AssertionError(f"K1 differs from its plain version at "
                              f"B={b} N={n} k={k}")
-    ms = timed_ms(torch, lambda: sampling.fps_cuda(xyz, valid, k), 10)
+    ms, host_us = timed(torch, lambda: sampling.fps_cuda(xyz, valid, k), 10)
     plain_ms = timed_ms(
         torch, lambda: sampling.farthest_point_sampling_plain(xyz, valid, k),
-        2)
+        1, 1)
     # each of the k-1 steps: 3 sub, 3 mul, 2 add, 1 min per valid point
     # (an invalid point is never a candidate)
     bound_ms, by = bound(b * n * 13 + b * k * 8,
@@ -218,16 +237,42 @@ def check_fps(torch, sampling, xyz, valid, k):
     return dict(name="fps", shape=list(sampling.fps_shape(b, n, k)),
                 valid_points=int(valid.sum()), route="cuda",
                 source=SOURCES["fps"], replaces=REPLACES["fps"],
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                max_abs_err=float(err), ms=ms, host_us=host_us,
+                plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def odd_fps_cases(torch, dev):
+    """K1 off the paths' shapes: (name, xyz, valid, k) with every point
+    twice (min-distance ties and zero distances), with a scan that leaves
+    the cluster's last blocks short, and with fewer valid points than k."""
+    g = np.random.default_rng(SEED + 2)
+
+    def cloud(b, n, n_valid):
+        xyz = g.normal(size=(b, n, 3)).astype(np.float32)
+        valid = np.zeros((b, n), bool)
+        for i in range(b):
+            valid[i, g.permutation(n)[:n_valid]] = True
+        return xyz, valid
+
+    ties, ties_v = cloud(2, 6000, 6000)
+    ties[:, 3000:] = ties[:, :3000]
+    ragged, ragged_v = cloud(1, 10001, 9000)
+    few, few_v = cloud(3, 5000, 300)
+    small, small_v = cloud(2, 700, 50)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return [("ties", t(ties), t(ties_v), 1500),
+            ("ragged", t(ragged), t(ragged_v), 2500),
+            ("few_valid", t(few), t(few_v), 1250),
+            ("few_valid_one_block", t(small), t(small_v), 175)]
 
 
 # ------------------------------------------------------------------- K2
 def check_knn(torch, nb, points, valid, centers, k, radius):
     """One K2 shape against the plain version; returns its entry.
     Tolerances: identical neighbour sets but for exact ties, dist2 relerr
-    <= 1e-5, moments relerr <= 1e-4 (the two are built to give the same
-    bits; max_abs_err reports what they gave)."""
+    <= 1e-5 (the two are built to give the same bits; max_abs_err reports
+    what they gave); cnt equal, s and S6 within one float32 ulp."""
     b, n, _ = points.shape
     s = centers.shape[1]
     got = nb.knn_cuda(points, centers, k, valid, radius)
@@ -244,15 +289,14 @@ def check_knn(torch, nb, points, valid, centers, k, radius):
             raise AssertionError(f"K2 neighbour sets differ at {r}")
     if relerr(got[1], ref[1]) > 1e-5:
         raise AssertionError("K2 dist2 differs from its plain version")
-    for a, c in zip(got[2:], ref[2:]):
-        if relerr(a, c) > 1e-4:
-            raise AssertionError("K2 moments differ from its plain version")
+    if radius > 0:
+        check_moment_values(got[2:], ref[2:], "K2")
     err = max(float(np.max(np.abs(a.astype(np.float64) - c)))
               for a, c in zip(got, ref))
-    ms = timed_ms(torch, lambda: nb.knn_cuda(points, centers, k, valid,
-                                             radius), 20)
+    ms, host_us = timed(torch, lambda: nb.knn_cuda(points, centers, k, valid,
+                                                   radius), 20)
     plain_ms = timed_ms(torch, lambda: nb.knn_plain(points, centers, k,
-                                                    valid, radius), 2)
+                                                    valid, radius), 2, 1)
 
     def library():
         d = torch.cdist(centers, points)
@@ -272,7 +316,8 @@ def check_knn(torch, nb, points, valid, centers, k, radius):
     return dict(name="knn", shape=list(nb.knn_shape(b, n, s, k, radius)),
                 valid_points=int(valid.sum()), route="cuda",
                 source=SOURCES["knn"], replaces=REPLACES["knn"],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err, ms=ms, host_us=host_us, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by=by, library_ms=library_ms)
 
 
@@ -294,6 +339,25 @@ def knn_inputs(torch, dev, scan_pts, scan_valid, n, s, radius, seed):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)[None]).to(dev)
     return (t(pts.astype(np.float32)), t(valid),
             t(np.asarray(centers, np.float32)))
+
+
+def odd_knn_cases(torch, dev, scan_pts, scan_valid):
+    """K2 off the paths' shapes: (name, points, valid, centers, k, radius)
+    at k = 65 and 128 (beyond the earlier limit of 64), on points that all
+    occur twice (exact distance ties), and with fewer valid points than k,
+    the last two with moments and a center count that is no multiple of a
+    warp's four."""
+    g = np.random.default_rng(SEED + 3)
+    wide = knn_inputs(torch, dev, scan_pts, scan_valid, 4096, 1024, 0.0, 11)
+    pts = g.normal(size=(1, 3000, 3)).astype(np.float32)
+    pts[:, 1500:] = pts[:, :1500]
+    few_v = np.zeros((1, 3000), bool)
+    few_v[0, g.permutation(3000)[:20]] = True
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return [("k65", *wide, 65, 0.0), ("k128", *wide, 128, 0.0),
+            ("ties", t(pts), t(np.ones((1, 3000), bool)), t(pts[:, :1001]),
+             40, 0.3),
+            ("few_valid", t(pts), t(few_v), t(pts[:, :1001]), 40, 0.3)]
 
 
 # --------------------------------------------------------------- K3, K4
@@ -617,7 +681,8 @@ def drive_unreached(engine, system, calls, infer, args, first_file) -> list:
 def normals_share(torch, nb, nm, sw, pts, valid, radius) -> dict:
     """Share of the valid points (with more than two neighbours) whose
     normal agrees, at |cos| >= 1 - 1e-4, with a float64 PCA of the same
-    neighbourhood: from K2's float32 moments and from K3's."""
+    neighbourhood: from K2's moments and from K3's (both float64 sums
+    rounded to float32 once)."""
     p64 = pts.double()
     feats = nb._p_feats(p64)
     ref = []
@@ -758,16 +823,21 @@ def main(out_dir: str = "") -> int:
     x4 = torch.from_numpy(pts[:4] / 60.0).float().to(dev)
     v4 = torch.from_numpy(valid[:4]).to(dev)
     entries.append(check_fps(torch, sampling, x4, v4, npoint[0]))
-    emit(dict(phase="k1", card=smi, shapes=[
-        {key: e[key] for key in ("shape", "max_abs_err", "ms", "plain_ms")}
-        for e in entries]))
+    odd = {name: check_fps(torch, sampling, xs, vs, k)["ms"]
+           for name, xs, vs, k in odd_fps_cases(torch, dev)}
+    emit(dict(phase="k1", card=smi, odd_cases_ms=odd, shapes=[
+        {key: e[key] for key in ("shape", "max_abs_err", "ms", "host_us",
+                                 "plain_ms")} for e in entries]))
 
     # every K2 shape of the paths (models/encoder.py, data/preprocess.py,
     # ops/infomat.py at this config); the sweep without moments is slam_b's
     e, n_lv = args.encoder, len(npoint)
     k_sweep = pre.normals_num + 1
+    k_reuse = int(e.nsample_list[0][0]) + 9
     knn_shapes = [(N_PAD, N_PAD, k_sweep, pre.normals_radius),
                   (N_PAD, N_PAD, k_sweep, 0.0),
+                  # what `tpu.sweep_reuse` alone runs (no path here does)
+                  (N_PAD, N_PAD, k_reuse, pre.normals_radius),
                   (N_PAD, npoint[0], e.nsample_list[0][0], 0.0)]
     for i in range(n_lv):
         own = max(e.nsample_list[i][1:], default=0)
@@ -783,9 +853,12 @@ def main(out_dir: str = "") -> int:
         inputs = knn_inputs(torch, dev, pts[0], valid[0], n, s, radius, j)
         k2.append(check_knn(torch, neighbors, inputs[0], inputs[1],
                             inputs[2], k, radius))
-    emit(dict(phase="k2", card=smi, shapes=[
-        {key: e[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
-                                 "library_ms")} for e in k2]))
+    odd = {name: check_knn(torch, neighbors, p, v, c, k, radius)["ms"]
+           for name, p, v, c, k, radius in odd_knn_cases(torch, dev, pts[0],
+                                                         valid[0])}
+    emit(dict(phase="k2", card=smi, odd_cases_ms=odd, shapes=[
+        {key: e[key] for key in ("shape", "max_abs_err", "ms", "host_us",
+                                 "plain_ms", "library_ms")} for e in k2]))
     entries += k2
 
     # ---------------------------------------------------------- K3, K4
@@ -796,7 +869,6 @@ def main(out_dir: str = "") -> int:
     scan = torch.from_numpy(pts[:1]).to(dev)
     scan_v = torch.from_numpy(crop[None]).to(dev)
     odd_p, odd_v = odd_scan(torch, dev)
-    k_reuse = int(e.nsample_list[0][0]) + 9
     k3 = [check_moments(torch, sweep, scan, scan_v, pre.normals_radius),
           check_moments(torch, sweep, odd_p, odd_v, 2.0)]
     emit(dict(phase="k3", card=smi, shapes=[
@@ -807,6 +879,16 @@ def main(out_dir: str = "") -> int:
           check_sweep(torch, sweep, odd_p, odd_v, k_reuse, 2.0)]
     recall = {str(k): sweep_recall(sweep, neighbors, scan, scan_v, k)
               for k in (k_sweep, k_reuse)}
+    # one membership rule and one way of summing: on the sweep's inputs cnt
+    # is equal across K2, K3 and K4, and the sums agree within one ulp
+    host = lambda xs: [x.cpu().numpy() for x in xs]
+    m3 = host(sweep.radius_moments_cuda(scan, scan_v, pre.normals_radius))
+    check_moment_values(host(neighbors.knn_cuda(
+        scan, scan, k_sweep, scan_v, pre.normals_radius)[2:]), m3,
+        "K2 against K3:")
+    check_moment_values(host(sweep.fused_sweep_cuda(
+        scan, scan_v, k_sweep, pre.normals_radius)[2:]), m3,
+        "K4 against K3:")
     # the same scan through K2 at K4's width, for the comparison in PERF.md
     k2_wide_ms = timed_ms(torch, lambda: neighbors.knn_cuda(
         scan, scan, k_reuse, scan_v, pre.normals_radius), 5)

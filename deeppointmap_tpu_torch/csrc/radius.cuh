@@ -1,7 +1,7 @@
-// Shared by moments.cu (K3) and sweep.cu (K4): the block layout, the
-// single-rounded squared distance that K2 (knn.cu) and the plain versions
-// use, and the float64 radius-moment accumulators with their fixed-order
-// block reduction.
+// Shared by knn.cu (K2), moments.cu (K3) and sweep.cu (K4): the
+// single-rounded squared distance that the plain versions use too, the
+// float64 radius-moment accumulators, and K3's and K4's block layout with
+// its fixed-order block reduction.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,8 +23,8 @@ __device__ __forceinline__ float sq_norm(float x, float y, float z) {
 }
 
 // |c|^2 - 2 c.p + |p|^2 as ((c2 - 2*cross) + p2), every operation rounded
-// on its own (no FMA contraction): the bits of ops/neighbors.pairwise_dist2
-// and of knn.cu, so all kernels agree on radius membership and ranking.
+// on its own (no FMA contraction): the bits of ops/neighbors.pairwise_dist2,
+// so all kernels agree on radius membership and ranking.
 __device__ __forceinline__ float dist2(float c2, float cx, float cy, float cz,
                                        float p2, float x, float y, float z) {
   const float cross = __fadd_rn(

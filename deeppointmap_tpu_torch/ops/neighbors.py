@@ -21,8 +21,9 @@ from deeppointmap_tpu_torch import kernels
 
 #: distance of invalid points (== deeppointmap_tpu.ops.neighbors._BIG)
 BIG = 1e9
-#: K2 keeps the k best as a register list of at most this length
-KNN_MAX_K = 64
+#: K2 keeps a center's k best as a sorted run in shared memory, of at most
+#: this length (the JAX package's Pallas route takes k <= 512 too)
+KNN_MAX_K = 512
 _IDX_BITS = 31
 
 
@@ -58,30 +59,16 @@ def _p_feats(points: torch.Tensor) -> torch.Tensor:
                         y * y, y * z, z * z], dim=-1)
 
 
-def _moments_plain(points, centers, points_valid, r2: float,
-                   center_chunk: int = 2048):
-    """Radius moments [cnt | s(3) | S6(6)] (B, S, 10), each center's sum
-    taken over its in-radius points in index order with one f32 rounding
-    per addition: the order of K2's per-center loop, so both give the same
-    bits. Step p adds every center's p-th in-radius point at once."""
-    b, s, _ = centers.shape
-    feats = _p_feats(points)
-    out = []
-    for c0 in range(0, s, center_chunk):
-        c = centers[:, c0:c0 + center_chunk]
-        w = (pairwise_dist2(c, points) <= r2) & points_valid[:, None, :]
-        bi, ci, pi = w.nonzero(as_tuple=True)   # row-major: index order
-        row = bi * c.shape[1] + ci
-        count = w.sum(-1).flatten()
-        pos = torch.arange(row.numel(), device=row.device) \
-            - (torch.cumsum(count, 0) - count)[row]
-        m = torch.zeros((count.numel(), 10), dtype=torch.float32,
-                        device=centers.device)
-        for step in range(int(count.max()) if count.numel() else 0):
-            sel = pos == step
-            m.index_add_(0, row[sel], feats[bi[sel], pi[sel]])
-        out.append(m.view(b, -1, 10))
-    return torch.cat(out, dim=1)
+def moments_chunk(valid, d2, r2: float, feats64) -> torch.Tensor:
+    """(B, C, 10) float32 radius moments [cnt | s(3) | S6(6)] of the centers
+    whose distances to the points are d2 (B, C, N), over the valid points
+    with d2 <= r2; cnt clamped to >= 1. `feats64` is `_p_feats` of the
+    points in float64: the products are exact, the sums one float64 matrix
+    product, rounded to float32 once. The plain moments of K2, K3 and K4."""
+    w = (d2 <= r2) & valid[:, None, :]
+    m = (w.double() @ feats64).float()
+    m[..., 0].clamp_(min=1.0)
+    return m
 
 
 def knn_plain(points, centers, k: int, points_valid, radius: float = 0.0,
@@ -92,10 +79,14 @@ def knn_plain(points, centers, k: int, points_valid, radius: float = 0.0,
     top-k runs on int64 keys (order-preserving distance bits, then the
     index), so ties go to the lower index exactly as in the kernel."""
     s = centers.shape[1]
-    outs = []
+    r2 = f32(radius * radius)
+    feats64 = _p_feats(points.double()) if radius > 0 else None
+    outs, moms = [], []
     for c0 in range(0, s, center_chunk):
         c = centers[:, c0:c0 + center_chunk]
         d = pairwise_dist2(c, points)
+        if radius > 0:
+            moms.append(moments_chunk(points_valid, d, r2, feats64))
         d = torch.where(points_valid[:, None, :], d, torch.full_like(d, BIG))
         bits = d.view(torch.int32)
         mono = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
@@ -107,9 +98,8 @@ def knn_plain(points, centers, k: int, points_valid, radius: float = 0.0,
     idx, dist2 = (torch.cat(parts, dim=1) for parts in zip(*outs))
     if radius <= 0:
         return idx, dist2
-    m = _moments_plain(points, centers, points_valid, f32(radius * radius))
-    return idx, dist2, torch.clamp(m[..., 0], min=1.0), m[..., 1:4], \
-        m[..., 4:10]
+    m = torch.cat(moms, dim=1)
+    return idx, dist2, m[..., 0], m[..., 1:4], m[..., 4:10]
 
 
 def knn_shape(b: int, n: int, s: int, k: int, radius: float) -> tuple:
@@ -123,11 +113,12 @@ def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
 
     Replaces the TPU kernel deeppointmap_tpu/ops/pallas_knn.py
     (fused_knn_moments), exact where that one keeps one winner per index
-    class. Bound: operations (8 FLOPs per center-point pair, ~16 more per
-    in-radius pair), far below what limits it, the serial scan of each
-    center's thread; the design splits a center's scan over up to 8 threads
-    when there are few centers, keeps the k best in registers, and fuses
-    the radius moments into the same pass (csrc/knn.cu says more)."""
+    class. Bound: operations (8 FLOPs per center-point pair, ~20 more per
+    in-radius pair); what costs is the selection, so a warp shares four
+    centers' thresholds, lanes queue the few candidates that beat them and
+    the warp merges a full queue into the center's sorted run of 64-bit
+    (distance, index) keys; the radius moments ride the same pass as
+    float64 sums (csrc/knn.cu says more)."""
     b, n, c = points.shape
     if c != 3 or centers.dim() != 3 or centers.shape[0] != b \
             or centers.shape[2] != 3:
@@ -153,9 +144,10 @@ def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
     d2 = torch.empty((b, s, k), dtype=torch.float32, device=dev)
     mom = torch.empty((b, s, 10), dtype=torch.float32, device=dev) \
         if radius > 0 else None
+    packed = torch.empty((b, n, 4), dtype=torch.float32, device=dev)
     kernels.KNN.launch(points.data_ptr(), points_valid.data_ptr(),
                        centers.data_ptr(), b, n, s, k, f32(radius * radius),
-                       idx.data_ptr(), d2.data_ptr(),
+                       packed.data_ptr(), idx.data_ptr(), d2.data_ptr(),
                        None if mom is None else mom.data_ptr(),
                        kernels.stream_ptr(dev),
                        shape=knn_shape(b, n, s, k, radius))

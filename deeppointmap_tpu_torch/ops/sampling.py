@@ -18,7 +18,8 @@ from deeppointmap_tpu_torch import kernels
 
 _NEG = -1.0
 _INF = 3.4e38
-#: K1 holds a scan's coordinates in one block's shared memory.
+#: K1 keeps a whole scan's coordinates in a block's shared memory (192 KB)
+#: and sends a point's index in 14 bits of a message.
 FPS_MAX_POINTS = 16384
 
 
@@ -59,10 +60,12 @@ def fps_cuda(xyz: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
 
     Replaces the TPU kernel deeppointmap_tpu/ops/pallas_fps.py
     (fps_pallas_batched). Bound: neither bytes nor FLOPs (microseconds);
-    the k - 1 serial steps, each ending in a block-wide argmax, take the
-    time. The design keeps a whole scan in one block of 1024 threads
-    (coordinates in shared memory, min-distances in registers) with one
-    barrier a step."""
+    the k - 1 serial steps, each ending in an argmax over the scan, take
+    the time. The design spreads a scan over one warp, one block or a
+    cluster of eight blocks by its size (at most 8 points a thread, in
+    registers) and pays one exchange a step: every warp's winner travels
+    as a 64-bit message through (distributed) shared memory, with no
+    barrier (csrc/fps.cu says more)."""
     b, n, c = xyz.shape
     if c != 3 or xyz.dtype != torch.float32 or valid.dtype != torch.bool:
         raise ValueError("fps_cuda takes xyz (B, N, 3) float32 and valid "

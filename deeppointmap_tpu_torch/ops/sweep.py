@@ -17,7 +17,8 @@ import torch
 
 from deeppointmap_tpu_torch import kernels
 from deeppointmap_tpu_torch.ops.neighbors import (BIG, _IDX_BITS, _p_feats,
-                                                  f32, pairwise_dist2)
+                                                  f32, moments_chunk,
+                                                  pairwise_dist2)
 
 #: K4 keeps the best two candidates of each index-mod-128 class
 SWEEP_CLASSES = 128
@@ -42,15 +43,6 @@ def _split(mom: torch.Tensor):
 
 
 # ----------------------------------------------------------------- K3
-def _moments_chunk(points, valid, d2, r2: float, feats64) -> torch.Tensor:
-    """(B, C, 10) float32 moments of the centers whose distances are d2
-    (B, C, N); cnt clamped to >= 1."""
-    w = (d2 <= r2) & valid[:, None, :]
-    m = (w.double() @ feats64).float()
-    m[..., 0].clamp_(min=1.0)
-    return m
-
-
 def radius_moments_plain(points, valid, radius: float,
                          center_chunk: int = 1024):
     """Plain version of K3; same arguments and returns as
@@ -58,9 +50,9 @@ def radius_moments_plain(points, valid, radius: float,
     float64 matrix product of the membership mask with the features."""
     r2 = f32(radius * radius)
     feats64 = _p_feats(points.double())
-    out = [_moments_chunk(points, valid,
-                          pairwise_dist2(points[:, c0:c0 + center_chunk],
-                                         points), r2, feats64)
+    out = [moments_chunk(valid,
+                         pairwise_dist2(points[:, c0:c0 + center_chunk],
+                                        points), r2, feats64)
            for c0 in range(0, points.shape[1], center_chunk)]
     return _split(torch.cat(out, dim=1))
 
@@ -127,7 +119,7 @@ def fused_sweep_plain(points, valid, k: int, radius: float = 0.0,
     for c0 in range(0, n, center_chunk):
         d = pairwise_dist2(points[:, c0:c0 + center_chunk], points)
         if radius > 0:
-            moms.append(_moments_chunk(points, valid, d, r2, feats64))
+            moms.append(moments_chunk(valid, d, r2, feats64))
         d = torch.where(valid[:, None, :], d, torch.full_like(d, BIG))
         d = torch.nn.functional.pad(d, (0, n_pad - n), value=BIG)
         bits = d.view(torch.int32)

@@ -41,6 +41,10 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_REG_BUCKETS = (256, 512, 1024, 2048, 4096)
 DEFAULT_BATCH_BUCKETS = (1, 4, 16, 64)
+#: candidate-count buckets of the JAX engine's multi-candidate program; the
+#: port compiles nothing, and keeps them only for the cache order (see
+#: register_with_info_multi_async)
+DEFAULT_CAND_BUCKETS = (2, 4, 8)
 #: member-count buckets for device-assembled map tiles (the reference bounds
 #: tiles to <= 16 keyframes via graph level 5 + 20 m radius)
 DEFAULT_TILE_MEMBER_BUCKETS = (4, 8, 16)
@@ -102,6 +106,8 @@ class InferenceEngine:
             tpu.get("loop_batch_buckets", DEFAULT_BATCH_BUCKETS))
         self.tile_member_buckets = tuple(
             tpu.get("tile_member_buckets", DEFAULT_TILE_MEMBER_BUCKETS))
+        self.cand_buckets = tuple(
+            tpu.get("cand_buckets", DEFAULT_CAND_BUCKETS))
         self.extract_chunk = int(tpu.get("extract_chunk",
                                          DEFAULT_EXTRACT_CHUNK))
         # int16 fixed-point scan upload with a sentinel-coded validity
@@ -383,6 +389,20 @@ class InferenceEngine:
                 self._dev(sv, _key(token, "kv_pad")),
                 *self._pcd_dev(pcd, pvalid, token), mb)
 
+    def _retouch_scan(self, token, tensors) -> None:
+        """What a second `_scan_dev` of a scan just used does to the cache,
+        without an upload: its four entries become the most recently used,
+        and one that the budget has evicted meanwhile goes back in."""
+        if token is None or self._dcache_probe(token, _SCAN_KEYS) is not None:
+            return
+        for name, dev in zip(_SCAN_KEYS, tensors):
+            with self._dcache_lock:
+                hit = (token, name) in self._dcache
+                if hit:
+                    self._dcache.move_to_end((token, name))
+            if not hit:
+                self._dcache_put((token, name), dev)
+
     @torch.inference_mode()
     def register_with_info_multi_async(self, cands, dst_desc, dst_valid,
                                        dst_pcd, dst_pvalid, num_sample=0.5,
@@ -393,13 +413,18 @@ class InferenceEngine:
         cands: list of (desc, kvalid, pcd, pvalid, token), where desc, pcd
         and pvalid may be zero-argument callables, called only when the
         scan is not in the device cache. Returns one resolver per
-        candidate. (The JAX package pads the candidate count to a compile
-        bucket by repeating the first one; without compilation there is
-        nothing to pad for.)"""
+        candidate. The JAX package pads the candidate count to a compile
+        bucket (`tpu.cand_buckets`) by repeating the first candidate, which
+        touches that scan's cache entries once more per padded slot, after
+        the real ones; the port launches nothing for the padding and
+        touches the entries the same way, so that both evict in one
+        order."""
         if not cands:
             raise ValueError("register_with_info_multi_async with no "
                              "candidates")
         scans = [self._scan_dev(*cand) for cand in cands]
+        for _ in range(_bucket(len(cands), self.cand_buckets) - len(cands)):
+            self._retouch_scan(cands[0][4], scans[0][:4])
         buckets = {scan[4] for scan in scans}
         if len(buckets) != 1:
             raise ValueError("candidate token buckets diverge within one "

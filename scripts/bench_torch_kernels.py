@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Time K1 (FPS) and K2 (kNN + moments) of the PyTorch/CUDA port at the
+shapes of the main path, on one NVIDIA GPU, and compare source trees.
+
+    python3 scripts/bench_torch_kernels.py [--out DIR]
+    python3 scripts/bench_torch_kernels.py --root A --root B --root B --root A
+
+Without `--root` the kernels of this checkout are built, held against their
+plain versions (K1: identical indices; K2: identical indices and distances,
+`--no-check` skips it) and timed: a run of launches between one pair of
+CUDA events (`chip_smoke.timed`), milliseconds a launch and the wrapper's
+host microseconds. With `--root` the same measurement runs once per given
+directory, in order, each in a process of its own on the same card: a root
+is a directory that holds a `deeppointmap_tpu_torch/` package (this
+checkout is `.`; another commit is unpacked with `git archive`), so two
+versions of a kernel are compared inside one call, in turns. Every line
+names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+#: (B, N, k) of K1: the encoder's five stages and the extract chunk
+FPS_SHAPES = [(1, 16384, 4096), (4, 16384, 4096), (1, 4096, 1024),
+              (1, 1024, 256), (1, 256, 64), (1, 64, 16)]
+#: (N, S, k, radius) of K2: the preprocess sweep with and without moments,
+#: the sweep at the reuse width, the encoder's queries, the info matrix
+KNN_SHAPES = [(16384, 16384, 17, 0.5), (16384, 16384, 17, 0.0),
+              (16384, 16384, 41, 0.5), (16384, 4096, 32, 0.0),
+              (4096, 4096, 32, 0.0), (1024, 1024, 32, 0.0),
+              (256, 256, 32, 0.0), (16384, 4096, 1, 0.0)]
+
+
+def measure(check: bool) -> dict:
+    """Build, check and time the kernels of the package on sys.path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_torch_kernels: no CUDA device")
+    sys.path.append(str(REPO))          # chip_smoke's helpers, after the root
+    import chip_smoke as cs
+    from deeppointmap_tpu_torch import kernels
+    from deeppointmap_tpu_torch.data import synthetic as syn
+    from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
+    from deeppointmap_tpu_torch.ops import neighbors, sampling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kernels.FPS.fn()
+    kernels.KNN.fn()
+    pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices, n_frames=4)
+    rows = []
+    for b, n, k in FPS_SHAPES:
+        if n == cs.N_PAD:
+            x = torch.from_numpy(pts[:b] / 60.0).float().to(dev)
+            v = torch.from_numpy(valid[:b]).to(dev)
+        else:
+            x = torch.randn(b, n, 3, device=dev) * 0.3
+            v = torch.ones(b, n, dtype=torch.bool, device=dev)
+        if check:
+            idx, sel = sampling.batched_fps(x, v, k)
+            ref = sampling.farthest_point_sampling_plain(x, v, k)
+            if not torch.equal(idx[sel], ref[sel]):
+                raise AssertionError(f"K1 differs at {(b, n, k)}")
+        ms, host = cs.timed(torch, lambda: sampling.fps_cuda(x, v, k), 20)
+        rows.append(dict(kernel="fps", shape=[b, n, k], ms=ms, host_us=host))
+    for j, (n, s, k, radius) in enumerate(KNN_SHAPES):
+        p, v, c = cs.knn_inputs(torch, dev, pts[0], valid[0], n, s, radius, j)
+        if check:
+            got = neighbors.knn_cuda(p, c, k, v, radius)
+            ref = neighbors.knn_plain(p, c, k, v, radius)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                                ref[1])):
+                raise AssertionError(f"K2 differs at {(n, s, k, radius)}")
+        ms, host = cs.timed(torch, lambda: neighbors.knn_cuda(p, c, k, v,
+                                                              radius), 20)
+        rows.append(dict(kernel="knn", shape=[1, n, s, k, radius], ms=ms,
+                         host_us=host))
+    return dict(card=smi, build_log="\n".join(
+        line for kern in (kernels.FPS, kernels.KNN)
+        for line in kern.build_log.splitlines() if "registers" in line
+        or "spill" in line or "Compiling" in line), rows=rows)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", action="append", default=[],
+                    help="directory holding a deeppointmap_tpu_torch/ "
+                         "package; repeat to run several in turns")
+    ap.add_argument("--no-check", action="store_true",
+                    help="skip the comparison with the plain versions")
+    ap.add_argument("--out", default="", help="directory for "
+                    "bench_torch_kernels.json")
+    args = ap.parse_args()
+    if not args.root:
+        sys.path.insert(0, os.getcwd())
+        result = measure(not args.no_check)
+        print(json.dumps(result), flush=True)
+        runs = [dict(root=".", **result)]
+    else:
+        runs = []
+        for root in args.root:
+            root = str(Path(root).resolve())
+            cmd = [sys.executable, str(Path(__file__).resolve())]
+            if args.no_check or root != str(REPO):
+                cmd.append("--no-check")   # another tree's plain versions
+            proc = subprocess.run(cmd, cwd=root, capture_output=True,
+                                  text=True, env=dict(os.environ,
+                                                      PYTHONPATH=root))
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
+                return proc.returncode
+            runs.append(dict(root=root, **json.loads(
+                proc.stdout.strip().splitlines()[-1])))
+        for run in runs:
+            for row in run["rows"]:
+                print(json.dumps(dict(root=run["root"], card=run["card"],
+                                      **row)), flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "bench_torch_kernels.json"),
+                  "w") as f:
+            json.dump(runs, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -134,8 +134,8 @@ def test_register_with_info_multi_matches_jax(setup):
                                           dst.pcd, dst.pvalid)
         _check_result(g, single)
     # the JAX engine touches the first candidate once more, for the padding
-    # of the candidate count to its bucket: same entries, another order
-    _same_cache(t_eng, j_eng, ordered=False)
+    # of the candidate count to its bucket; the port touches it the same way
+    _same_cache(t_eng, j_eng, ordered=True)
     # cached candidates are served without touching their thunks
     boom = lambda: 1 / 0
     again = t_eng.register_with_info_multi_async(
@@ -145,6 +145,27 @@ def test_register_with_info_multi_matches_jax(setup):
     with pytest.raises(ValueError):
         t_eng.register_with_info_multi_async([], dst.desc, dst.kvalid,
                                              dst.pcd, dst.pvalid)
+
+
+def test_multi_candidate_padding_evicts_like_jax(setup):
+    """A budget that just holds the three candidates: the padded fourth slot
+    touches candidate 0 again, so the new scan's point cloud pushes
+    candidate 1 out first, in both engines."""
+    _, t_big, s, _ = setup
+    t_big.invalidate_device_cache()
+    t_big._scan_dev(*s[0].cand())
+    per_scan = t_big._dcache_bytes
+    t_big.invalidate_device_cache()
+    j_eng, t_eng = make_engines(device_cache_mb=3.05 * per_scan / 2 ** 20)
+    dst = s[4]
+    for eng in (j_eng, t_eng):
+        eng.register_with_info_multi_async(
+            [x.cand() for x in s[:3]], dst.desc, dst.kvalid, dst.pcd,
+            dst.pvalid, num_sample=0.5, dst_token=dst.token)
+    _same_cache(t_eng, j_eng, ordered=True)
+    assert (s[0].token, "kp_pad") in t_eng._dcache
+    assert (s[1].token, "kp_pad") not in t_eng._dcache
+    assert (dst.token, "pcd") in t_eng._dcache
 
 
 @pytest.mark.parametrize("n_members", [3, 5])

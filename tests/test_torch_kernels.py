@@ -33,13 +33,30 @@ def _cloud(b, n, n_valid, seed, scale=20.0):
     return torch.from_numpy(xyz), torch.from_numpy(valid)
 
 
-@pytest.mark.parametrize("b,n,n_valid,k", [
-    (1, 16384, 9000, 4096), (4, 4096, 4096, 1024), (2, 1000, 700, 256),
-    (1, 64, 20, 16), (3, 1500, 1500, 1500)])
-def test_fps_bitwise(dev, b, n, n_valid, k):
+def _ulp_close(a, r):
+    """Equal to within one float32 ulp of the reference."""
+    a, r = a.double(), r.double()
+    ulp = torch.ldexp(torch.ones_like(r),
+                      torch.frexp(r.abs().clamp(min=1e-30))[1] - 24)
+    assert bool(((a - r).abs() <= ulp).all()), float((a - r).abs().max())
+
+
+@pytest.mark.parametrize("b,n,n_valid,k,twice", [
+    (1, 16384, 9000, 4096, False), (4, 4096, 4096, 1024, False),
+    (2, 1000, 700, 256, False), (1, 64, 20, 16, False),
+    (3, 1500, 1500, 1500, False),
+    (2, 16384, 16384, 2048, True),      # a cluster a scan, every point twice
+    (1, 10001, 9000, 2500, False),      # the cluster's last blocks are short
+    (3, 5000, 300, 1250, False),        # fewer valid points than k
+    (2, 3000, 3000, 3000, True),        # one-block cluster, all points picked
+    (4, 200, 150, 200, True)])          # one warp
+def test_fps_bitwise(dev, b, n, n_valid, k, twice):
     """Indices identical to the plain version (single-rounded distances in
-    the same order, argmax ties to the lowest index)."""
+    the same order, argmax ties to the lowest index), whatever the layout:
+    one warp, one block or a cluster of blocks."""
     xyz, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n + k))
+    if twice:
+        xyz[:, n // 2:] = xyz[:, :n - n // 2]
     before = kernels.FPS.launches
     idx, sel = sampling.batched_fps(xyz, valid, k)
     assert kernels.FPS.launches == before + 1
@@ -48,6 +65,8 @@ def test_fps_bitwise(dev, b, n, n_valid, k):
     sel_ref = torch.arange(k, device=dev)[None] < valid.sum(1)[:, None]
     torch.testing.assert_close(sel, sel_ref, rtol=0, atol=0)
     torch.testing.assert_close(idx[sel], ref[sel], rtol=0, atol=0)
+    # beyond the valid points both repeat index 0
+    torch.testing.assert_close(idx, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n,s,k,radius,scale", [
@@ -58,13 +77,25 @@ def test_fps_bitwise(dev, b, n, n_valid, k):
     (2500, 999, 7, 0.3, 1.0),           # generic list length
     (300, 130, 40, 0.0, 1.0),
     (50, 70, 16, 0.0, 1.0),
-    (3000, 6000, 5, 0.0, 1.0),          # two threads per center
-    (5000, 9000, 32, 0.0, 1.0)])        # one thread per center
+    (3000, 6000, 5, 0.0, 1.0),          # two warps per center group
+    (5000, 9000, 32, 0.0, 1.0),         # one warp per center group
+    (16384, 16384, 41, 0.5, 20.0),      # the sweep-reuse width, with moments
+    (4096, 1024, 65, 0.0, 1.0),         # beyond the earlier limit of 64
+    (4096, 1023, 128, 0.2, 1.0),
+    (2000, 50, 512, 0.0, 1.0),          # the widest run
+    (3000, 1001, 40, 0.3, -1.0),        # every point twice: exact ties
+    (600, 77, 40, 0.5, 1.0)])           # with 20 valid points: fewer than k
 def test_knn_bitwise(dev, n, s, k, radius, scale):
-    """Indices, distances and moments identical to the plain version: both
-    evaluate one fixed order of single-rounded operations. The shapes
-    cover each split of a center's scan over 1, 2, 4 or 8 threads."""
-    pts, valid = (x.to(dev) for x in _cloud(1, n, int(0.8 * n), n + k, scale))
+    """Indices and distances identical to the plain version (both evaluate
+    one fixed order of single-rounded operations and rank 64-bit keys);
+    cnt equal, s and S6 within one float32 ulp (float64 sums in another
+    order, rounded once). The shapes cover each split of a center group's
+    scan over 1, 2, 4 or 8 warps."""
+    twice, scale = scale < 0, abs(scale)
+    n_valid = 20 if n == 600 else int(0.8 * n)
+    pts, valid = (x.to(dev) for x in _cloud(1, n, n_valid, n + k, scale))
+    if twice:
+        pts[:, n // 2:] = pts[:, :n - n // 2]
     centers = pts[:, torch.randperm(n, device=dev)[:s]] if s <= n else None
     if centers is None:
         centers = _cloud(1, s, s, k, scale)[0].to(dev)
@@ -72,8 +103,10 @@ def test_knn_bitwise(dev, n, s, k, radius, scale):
     ref = neighbors.knn_plain(pts, centers.contiguous(), k, valid, radius)
     torch.cuda.synchronize()
     assert len(got) == len(ref) == (5 if radius > 0 else 2)
-    for a, r in zip(got, ref):
+    for a, r in zip(got[:3], ref[:3]):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
+    for a, r in zip(got[3:], ref[3:]):
+        _ulp_close(a, r)
     assert int(got[0].min()) >= 0 and int(got[0].max()) < n
 
 
@@ -90,21 +123,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         neighbors.knn_cuda(pts.double(), pts, 4, valid)
     with pytest.raises(ValueError):
-        neighbors.knn_cuda(pts, pts, 65, valid)
+        neighbors.knn_cuda(pts, pts, 65, valid)          # k above N = 64
+    big, big_v = (x.to(dev) for x in _cloud(1, 1000, 1000, 2))
+    with pytest.raises(ValueError, match=str(neighbors.KNN_MAX_K)):
+        neighbors.knn_cuda(big, big, neighbors.KNN_MAX_K + 1, big_v)
     with pytest.raises(ValueError):
         sampling.fps_cuda(pts.transpose(1, 2).contiguous().transpose(1, 2),
                           valid, 8)
     with pytest.raises(ValueError):
         sampling.fps_cuda(torch.zeros(1, 16385, 3, device=dev),
                           torch.ones(1, 16385, dtype=torch.bool, device=dev), 8)
-
-
-def _ulp_close(a, r):
-    """Equal to within one float32 ulp of the reference."""
-    a, r = a.double(), r.double()
-    ulp = torch.ldexp(torch.ones_like(r),
-                      torch.frexp(r.abs().clamp(min=1e-30))[1] - 24)
-    assert bool(((a - r).abs() <= ulp).all()), float((a - r).abs().max())
 
 
 @pytest.mark.parametrize("b,n,n_valid,radius,scale", [
