@@ -16,13 +16,20 @@ Phases, in order, each printing one JSON line:
           moments within one float32 ulp; also at k = 65 and 128, on
           duplicated points, and with fewer valid points than k.
   k3      K3 (radius moments over all points) against its plain version at
-          (1, 16384, r 0.5 m) and at a small odd shape: cnt equal, s and S6
-          within one float32 ulp.
+          (1, 16384, r 0.5 m), at a small odd shape and at the seams of its
+          class-major layout (`seam_scans`): cnt equal, s and S6 within one
+          float32 ulp.
+  k4_routes  the preprocess sweep of frame 0 under each route of
+          ops/normals.filter_sweep (K2 with moments; K4; K3 + K2 without
+          moments) at the filters' width (k 17) and the sweep-reuse width
+          (k 41): the sweep's time, and the filter survivors on which each
+          route differs from the K2 route.
   k4      K4 (fused sweep) against its plain version at (1, 16384, k 41,
-          r 0.5 m) and at a small odd shape: indices and dist2 identical,
-          moments as K3; recall against K2's exact neighbours at k = 17 and
-          41 on a synthetic scan must be >= 0.97; its time at k = 17 beside
-          k = 41, and K2's at k = 41.
+          r 0.5 m), at a small odd shape and at the layout's seams (k = 1,
+          17, 41, 128): indices and dist2 identical, moments as K3; recall
+          against K2's exact neighbours at k = 17 and 41 on a synthetic scan
+          must be >= 0.97; its time at k = 17 beside k = 41, and K2's at
+          k = 41.
   main    the inference engine at full width (DeepPointMap-B,
           configs/infer/sample.yaml, trained weights from
           artifacts/full_size_occ_v2) on synthetic scans: extract, odometry
@@ -469,6 +476,66 @@ def odd_scan(torch, dev):
     return torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
 
 
+def seam_scans(torch, dev, scan_pts, crop):
+    """Inputs at the seams of K3's and K4's class-major layout, as (name,
+    points, valid, radius, ks): the frame-0 scan with its points scattered
+    over the 16384 slots (valid and invalid interleaved), a whole invalid
+    stretch of two 128-point tiles and classes 5 and 77 cut to at most one
+    valid point; and B = 2 ragged clouds (n = 5001) in which every point
+    occurs twice (distance ties across classes), with the same cuts. ks:
+    the K4 widths checked on it, k = 1, 17, 41 and 128 between them."""
+    g = np.random.default_rng(SEED + 4)
+
+    def cut(valid):
+        n = valid.shape[-1]
+        valid[..., n // 3:n // 3 + 256] = False
+        cls = np.arange(n) % 128
+        valid[..., (cls == 5) | (cls == 77)] = False
+        valid[..., 5] = True
+        return valid
+
+    order = g.permutation(N_PAD)
+    scattered = np.zeros((1, N_PAD, 3), np.float32)
+    scattered_v = np.zeros((1, N_PAD), bool)
+    scattered[0, order] = scan_pts
+    scattered_v[0, order] = crop
+    ties = (g.normal(size=(2, 5001, 3)) * 3.0).astype(np.float32)
+    ties[:, 2500:] = ties[:, :2501]
+    ties_v = g.random((2, 5001)) < 0.6
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return [("scattered", t(scattered), t(cut(scattered_v)), 0.5, (41, 128)),
+            ("ragged_ties_b2", t(ties), t(cut(ties_v)), 1.0, (1, 17))]
+
+
+def route_survivors(torch, normals, preprocess, cfgs, scan, scan_v, valid_raw):
+    """The three routes of filter_sweep on frame 0 (K2 with its moments;
+    K4; K3 + K2 without moments), at each given preprocess config: the
+    sweep's time on the inputs preprocess gives it (the scan under the
+    distance crop), and the number of filter survivors on which each route
+    differs from the K2 route. Restores the switches."""
+    routes = {"k2": (False, False), "k4": (True, False),
+              "k3_k2": (False, True)}
+    out = {}
+    try:
+        for width, cfg in cfgs.items():
+            k = max(cfg.normals_num + 1, cfg.outlier_neighbors + 1,
+                    cfg.sweep_k)
+            base, row = None, {}
+            for name, (fused_sweep, fused_moments) in routes.items():
+                normals.USE_FUSED_SWEEP = fused_sweep
+                normals.USE_FUSED_MOMENTS = fused_moments
+                ms = timed_ms(torch, lambda: normals.filter_sweep(
+                    scan, scan_v, k, cfg.normals_radius), 10)
+                kept = preprocess(scan, valid_raw, cfg)[1].cpu().numpy()
+                base = kept if base is None else base
+                row[name] = dict(sweep_ms=ms, survivors=int(kept.sum()),
+                                 differ_from_k2=int((kept != base).sum()))
+            out[width] = dict(k=k, **row)
+    finally:
+        normals.USE_FUSED_SWEEP = normals.USE_FUSED_MOMENTS = False
+    return out
+
+
 def drive_main_path(engine, pts, valid, poses) -> dict:
     """extract on frame 0, odometry_step frame to frame, register_with_info
     (frame 0 -> 2) and loop_scores (each frame against the next), through
@@ -773,7 +840,8 @@ def main(out_dir: str = "") -> int:
     from deeppointmap_tpu_torch import kernels
     from deeppointmap_tpu_torch.config import config_from_dict
     from deeppointmap_tpu_torch.data import synthetic as syn
-    from deeppointmap_tpu_torch.data.preprocess import PreprocessConfig
+    from deeppointmap_tpu_torch.data.preprocess import (PreprocessConfig,
+                                                        preprocess)
     from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.ops import neighbors, normals, sampling, sweep
@@ -869,14 +937,25 @@ def main(out_dir: str = "") -> int:
     scan = torch.from_numpy(pts[:1]).to(dev)
     scan_v = torch.from_numpy(crop[None]).to(dev)
     odd_p, odd_v = odd_scan(torch, dev)
+    seams = seam_scans(torch, dev, pts[0], crop)
     k3 = [check_moments(torch, sweep, scan, scan_v, pre.normals_radius),
           check_moments(torch, sweep, odd_p, odd_v, 2.0)]
-    emit(dict(phase="k3", card=smi, shapes=[
+    odd = {name: check_moments(torch, sweep, p, v, radius)["ms"]
+           for name, p, v, radius, _ in seams}
+    emit(dict(phase="k3", card=smi, seam_cases_ms=odd, shapes=[
         {key: en[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms")} for en in k3]))
+    pre_wide = PreprocessConfig.from_transforms(args.transforms,
+                                                sweep_k=k_reuse)
+    emit(dict(phase="k4_routes", card=smi, frame=0, routes=route_survivors(
+        torch, normals, preprocess, {"filters": pre, "sweep_reuse": pre_wide},
+        scan, scan_v, torch.from_numpy(valid[:1]).to(dev))))
     k4 = [check_sweep(torch, sweep, scan, scan_v, k_reuse,
                       pre.normals_radius),
           check_sweep(torch, sweep, odd_p, odd_v, k_reuse, 2.0)]
+    odd = {f"{name}_k{k}": check_sweep(torch, sweep, p, v, k,
+                                       radius if k < 128 else 0.0)["ms"]
+           for name, p, v, radius, ks in seams for k in ks}
     recall = {str(k): sweep_recall(sweep, neighbors, scan, scan_v, k)
               for k in (k_sweep, k_reuse)}
     # one membership rule and one way of summing: on the sweep's inputs cnt
@@ -895,7 +974,7 @@ def main(out_dir: str = "") -> int:
     # K4 at the filters' own width: its cost should not depend on k
     k4_narrow_ms = timed_ms(torch, lambda: sweep.fused_sweep_cuda(
         scan, scan_v, k_sweep, pre.normals_radius), 20)
-    emit(dict(phase="k4", card=smi, recall_vs_k2=recall,
+    emit(dict(phase="k4", card=smi, recall_vs_k2=recall, seam_cases_ms=odd,
               k2_ms_at_k4_shape=k2_wide_ms,
               k4_ms_at_k={str(k_sweep): k4_narrow_ms,
                           str(k_reuse): k4[0]["ms"]}, shapes=[

@@ -62,28 +62,18 @@
 namespace {
 
 using dpm::kFeat;
+using dpm::kFull;
+using dpm::make_key;
+using dpm::mono_bits;
+using dpm::mono_float;
 
 constexpr int kGroup = 4;    // centers per warp
 static_assert(kGroup == 4, "the scan reads four thresholds by name");
 constexpr int kQueue = 64;   // candidate slots per center
 constexpr int kMaxK = 512;
 constexpr int kMaxWarps = 8;
-constexpr unsigned kFull = 0xffffffffu;
 // an empty slot of a run: distance +inf, the largest index
 constexpr uint64_t kEmpty = 0xff8000007fffffffull;
-
-__device__ __forceinline__ uint32_t mono_bits(float d) {
-  const uint32_t u = __float_as_uint(d);
-  return u ^ ((uint32_t)((int32_t)u >> 31) | 0x80000000u);
-}
-
-__device__ __forceinline__ float mono_float(uint32_t m) {
-  return __uint_as_float(m & 0x80000000u ? m ^ 0x80000000u : ~m);
-}
-
-__device__ __forceinline__ uint64_t make_key(float d, int idx) {
-  return ((uint64_t)mono_bits(d) << 32) | (uint32_t)idx;
-}
 
 // Merge the m keys at `cand` (any order, m <= kQueue, distinct unless
 // kEmpty) into the sorted run `src` of k keys; the k smallest go, sorted,

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -119,10 +120,11 @@ KNN = Kernel("knn", "knn.cu", "dpm_knn",
              headers=("radius.cuh",))
 #: K3: radius-PCA moments (csrc/moments.cu).
 MOMENTS = Kernel("moments", "moments.cu", "dpm_moments",
-                 [_P, _P, _I, _I, _F, _P, _P], headers=("radius.cuh",))
+                 [_P, _P, _I, _I, _F, _P, _L, _P, _P],
+                 headers=("radius.cuh",))
 #: K4: fused sweep, best two per index class + moments (csrc/sweep.cu).
 SWEEP = Kernel("sweep", "sweep.cu", "dpm_sweep",
-               [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+               [_P, _P, _I, _I, _I, _F, _P, _L, _P, _P, _P, _P],
                headers=("radius.cuh",))
 ALL = (FPS, KNN, MOMENTS, SWEEP)
 

@@ -42,6 +42,18 @@ def _split(mom: torch.Tensor):
     return mom[..., 0], mom[..., 1:4], mom[..., 4:10]
 
 
+def _class_scratch(b: int, n: int, device) -> torch.Tensor:
+    """Scratch for K3's and K4's class-major copy of the scan
+    (csrc/radius.cuh `class_scratch_bytes`, which the kernels check): per
+    index-mod-128 class, m4 slots of a float4 point and an int32 index (m4 =
+    the class's member count rounded up to 4), its valid count and its two
+    lowest invalid indices."""
+    m = max(2, -(-n // SWEEP_CLASSES))
+    m4 = -(-m // 4) * 4
+    return torch.empty(b * SWEEP_CLASSES * (m4 * 20 + 12), dtype=torch.uint8,
+                       device=device)
+
+
 # ----------------------------------------------------------------- K3
 def radius_moments_plain(points, valid, radius: float,
                          center_chunk: int = 1024):
@@ -67,15 +79,21 @@ def radius_moments_cuda(points, valid, radius: float):
     and returns as `radius_moments`.
 
     Replaces the TPU kernel deeppointmap_tpu/ops/pallas_moments.py
-    (radius_moments_pallas). Bound: operations (8 FLOPs per pair of points,
-    ~10 float64 additions per in-radius pair); the design gives four
-    centers to a block of 128 lanes, each lane walking one index class with
-    the sums in registers (csrc/moments.cu says more)."""
+    (radius_moments_pallas). Bound: operations (8 FLOPs per pair of a point
+    with a valid point, ~20 per in-radius pair). The design packs the valid
+    points once, class-major and compacted (invalid points cost nothing),
+    and gives a block of 16 warps 64 centers, two a lane in registers, each
+    warp walking 8 of the 128 classes: one broadcast load serves 64 centers;
+    the float64 sums run only for points some lane has inside its radius
+    and are added across warps in a fixed order (csrc/moments.cu says
+    more)."""
     _check_scan("radius_moments_cuda", points, valid)
     b, n, _ = points.shape
     mom = torch.empty((b, n, 10), dtype=torch.float32, device=points.device)
+    scratch = _class_scratch(b, n, points.device)
     kernels.MOMENTS.launch(points.data_ptr(), valid.data_ptr(), b, n,
-                           f32(radius * radius), mom.data_ptr(),
+                           f32(radius * radius), scratch.data_ptr(),
+                           scratch.numel(), mom.data_ptr(),
                            kernels.stream_ptr(points.device),
                            shape=moments_shape(b, n, radius))
     return _split(mom)
@@ -150,10 +168,16 @@ def fused_sweep_cuda(points, valid, k: int, radius: float = 0.0):
 
     Replaces the TPU kernel deeppointmap_tpu/ops/pallas_sweep.py
     (fused_sweep_pallas), including the top-k over the 256 candidates that
-    the TPU version leaves to XLA. Bound: operations (8 FLOPs per pair of
-    points); the design maps the class rule onto 128 lanes a block, each
-    holding the best two of its class in registers for four centers, then
-    sorts the 256 winners in shared memory (csrc/sweep.cu says more)."""
+    the TPU version leaves to XLA. Bound: operations (8 FLOPs per pair of a
+    point with a valid point). The design packs each class's valid points
+    once, compacted in index order, beside its two lowest invalid indices
+    (invalid points are never visited; they enter as keys at 1e9 at the
+    class end); a block of 16 warps owns 64 centers, two a lane, and warp w
+    walks classes 8w .. 8w + 7 keeping each center's best two in registers,
+    so the warps never merge; then 8 lanes select for each center: each
+    lane sorts its 16 classes' 32 candidates by a fixed network, and k
+    rounds of a shuffle butterfly over the 8 lanes' heads give the
+    neighbours in order (csrc/sweep.cu says more)."""
     _check_scan("fused_sweep_cuda", points, valid)
     if not 1 <= k <= SWEEP_MAX_K:
         raise ValueError(f"fused_sweep_cuda needs 1 <= k <= {SWEEP_MAX_K} "
@@ -164,8 +188,10 @@ def fused_sweep_cuda(points, valid, k: int, radius: float = 0.0):
     d2 = torch.empty((b, n, k), dtype=torch.float32, device=dev)
     mom = torch.empty((b, n, 10), dtype=torch.float32, device=dev) \
         if radius > 0 else None
+    scratch = _class_scratch(b, n, dev)
     kernels.SWEEP.launch(points.data_ptr(), valid.data_ptr(), b, n, k,
-                         f32(radius * radius), idx.data_ptr(), d2.data_ptr(),
+                         f32(radius * radius), scratch.data_ptr(),
+                         scratch.numel(), idx.data_ptr(), d2.data_ptr(),
                          None if mom is None else mom.data_ptr(),
                          kernels.stream_ptr(dev),
                          shape=sweep_shape(b, n, k, radius))

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time K1 (FPS) and K2 (kNN + moments) of the PyTorch/CUDA port at the
-shapes of the main path, on one NVIDIA GPU, and compare source trees.
+"""Time the four kernels of the PyTorch/CUDA port (K1 FPS, K2 kNN + moments,
+K3 radius moments, K4 fused sweep) at the shapes of the main path, on one
+NVIDIA GPU, and compare source trees.
 
     python3 scripts/bench_torch_kernels.py [--out DIR]
     python3 scripts/bench_torch_kernels.py --root A --root B --root B --root A
 
 Without `--root` the kernels of this checkout are built, held against their
-plain versions (K1: identical indices; K2: identical indices and distances,
-`--no-check` skips it) and timed: a run of launches between one pair of
-CUDA events (`chip_smoke.timed`), milliseconds a launch and the wrapper's
-host microseconds. With `--root` the same measurement runs once per given
+plain versions (K1: identical indices; K2 and K4: identical indices and
+distances; K3: cnt identical; `--no-check` skips it) and timed: a run of
+launches between one pair of CUDA events (`chip_smoke.timed`),
+milliseconds a launch and the wrapper's host microseconds. With `--root` the same measurement runs once per given
 directory, in order, each in a process of its own on the same card: a root
 is a directory that holds a `deeppointmap_tpu_torch/` package (this
 checkout is `.`; another commit is unpacked with `git archive`), so two
@@ -26,6 +27,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -38,6 +41,12 @@ KNN_SHAPES = [(16384, 16384, 17, 0.5), (16384, 16384, 17, 0.0),
               (16384, 16384, 41, 0.5), (16384, 4096, 32, 0.0),
               (4096, 4096, 32, 0.0), (1024, 1024, 32, 0.0),
               (256, 256, 32, 0.0), (16384, 4096, 1, 0.0)]
+#: (k, radius) of K4 on the preprocess sweep's scan (`slam_a` runs k = 41
+#: with moments; the other rows split its time: k = 1 is the distance pass
+#: and the sort with one selection round), and the radius of K3 there
+#: (`slam_b`)
+SWEEP_SHAPES = [(41, 0.5), (17, 0.5), (41, 0.0), (1, 0.0)]
+MOMENTS_RADIUS = 0.5
 
 
 def measure(check: bool) -> dict:
@@ -51,7 +60,7 @@ def measure(check: bool) -> dict:
     from deeppointmap_tpu_torch import kernels
     from deeppointmap_tpu_torch.data import synthetic as syn
     from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
-    from deeppointmap_tpu_torch.ops import neighbors, sampling
+    from deeppointmap_tpu_torch.ops import neighbors, sampling, sweep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -59,8 +68,7 @@ def measure(check: bool) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    kernels.FPS.fn()
-    kernels.KNN.fn()
+    kernels.build_all()
     pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices, n_frames=4)
     rows = []
     for b, n, k in FPS_SHAPES:
@@ -89,8 +97,34 @@ def measure(check: bool) -> dict:
                                                               radius), 20)
         rows.append(dict(kernel="knn", shape=[1, n, s, k, radius], ms=ms,
                          host_us=host))
+    # K3 and K4 on the preprocess sweep's inputs: the scan in raw meters
+    # under the distance crop (chip_smoke's k3 / k4 phases)
+    dist = np.linalg.norm(pts[0], axis=1)
+    crop = valid[0] & (dist >= 1.0) & (dist <= 60.0)
+    scan = torch.from_numpy(pts[:1]).to(dev)
+    scan_v = torch.from_numpy(crop[None]).to(dev)
+    if check:
+        got = sweep.radius_moments_cuda(scan, scan_v, MOMENTS_RADIUS)
+        ref = sweep.radius_moments_plain(scan, scan_v, MOMENTS_RADIUS)
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError("K3 differs from its plain version")
+    ms, host = cs.timed(torch, lambda: sweep.radius_moments_cuda(
+        scan, scan_v, MOMENTS_RADIUS), 20)
+    rows.append(dict(kernel="moments", shape=[1, cs.N_PAD, MOMENTS_RADIUS],
+                     ms=ms, host_us=host))
+    for k, radius in SWEEP_SHAPES:
+        if check:
+            got = sweep.fused_sweep_cuda(scan, scan_v, k, radius)
+            ref = sweep.fused_sweep_plain(scan, scan_v, k, radius)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                                ref[1])):
+                raise AssertionError(f"K4 differs at {(k, radius)}")
+        ms, host = cs.timed(torch, lambda: sweep.fused_sweep_cuda(
+            scan, scan_v, k, radius), 20)
+        rows.append(dict(kernel="sweep", shape=[1, cs.N_PAD, k, radius],
+                         ms=ms, host_us=host))
     return dict(card=smi, build_log="\n".join(
-        line for kern in (kernels.FPS, kernels.KNN)
+        line for kern in kernels.ALL
         for line in kern.build_log.splitlines() if "registers" in line
         or "spill" in line or "Compiling" in line), rows=rows)
 

@@ -135,16 +135,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                           torch.ones(1, 16385, dtype=torch.bool, device=dev), 8)
 
 
-@pytest.mark.parametrize("b,n,n_valid,radius,scale", [
-    (1, 16384, 10000, 0.5, 20.0),       # the preprocess shape, raw meters
-    (2, 1000, 37, 2.0, 5.0),            # N not a multiple of 128, few valid
-    (3, 130, 130, 1.0, 1.0),
-    (1, 3, 2, 1.0, 1.0)])
-def test_moments_match_plain(dev, b, n, n_valid, radius, scale):
+def _seams(pts, valid, twice):
+    """The seams of K3's and K4's class-major layout on a cloud: a whole
+    invalid stretch in the middle (two 128-point tiles), classes 5 and 77
+    with at most one valid point, and with `twice` every point twice
+    (distance ties across classes)."""
+    n = pts.shape[1]
+    if twice:
+        pts[:, n // 2:] = pts[:, :n - n // 2]
+    valid[:, n // 3:n // 3 + 256] = False
+    cls = torch.arange(n, device=valid.device) % 128
+    valid[:, (cls == 5) | (cls == 77)] = False
+    valid[:, 5] = True
+    return pts, valid
+
+
+@pytest.mark.parametrize("b,n,n_valid,radius,scale,seams", [
+    (1, 16384, 10000, 0.5, 20.0, False),   # the preprocess shape, raw meters
+    (2, 1000, 37, 2.0, 5.0, False),        # N not a multiple of 128, few valid
+    (3, 130, 130, 1.0, 1.0, False),
+    (1, 3, 2, 1.0, 1.0, False),
+    (1, 16384, 9500, 0.5, 20.0, True),     # scattered, invalid tiles, ties
+    (2, 5001, 3000, 1.5, 3.0, True),       # ragged, B = 2
+    (1, 700, 500, 4.0, 2.0, True)])        # one block of centers, dense hits
+def test_moments_match_plain(dev, b, n, n_valid, radius, scale, seams):
     """K3 against its plain version: cnt equal, s and S6 within one float32
     ulp (both sum exact float64 products and round once; only the order of
-    the float64 additions differs)."""
+    the float64 additions differs), at the seams of its layout too."""
     pts, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n, scale))
+    if seams:
+        pts, valid = _seams(pts, valid, True)
     before = kernels.MOMENTS.launches
     got = sweep.radius_moments(pts, valid, radius)
     assert kernels.MOMENTS.launches == before + 1
@@ -155,17 +175,27 @@ def test_moments_match_plain(dev, b, n, n_valid, radius, scale):
     _ulp_close(got[2], ref[2])
 
 
-@pytest.mark.parametrize("b,n,n_valid,k,radius,scale", [
-    (1, 16384, 10000, 41, 0.5, 20.0),   # sweep_reuse shape, raw meters
-    (1, 16384, 10000, 17, 0.0, 20.0),
-    (2, 1000, 37, 41, 2.0, 5.0),        # N not a multiple of 128, few valid
-    (3, 130, 130, 128, 0.0, 1.0),       # fewer than two points a class
-    (1, 5, 3, 7, 1.0, 1.0)])            # k above N
-def test_sweep_bitwise(dev, b, n, n_valid, k, radius, scale):
+@pytest.mark.parametrize("b,n,n_valid,k,radius,scale,seams", [
+    (1, 16384, 10000, 41, 0.5, 20.0, False),   # sweep_reuse shape, raw meters
+    (1, 16384, 10000, 17, 0.0, 20.0, False),
+    (2, 1000, 37, 41, 2.0, 5.0, False),        # N not a multiple of 128
+    (3, 130, 130, 128, 0.0, 1.0, False),       # fewer than two points a class
+    (1, 5, 3, 7, 1.0, 1.0, False),             # k above N
+    (1, 16384, 9500, 41, 0.5, 20.0, True),     # scattered, invalid tiles, ties
+    (1, 16384, 9500, 17, 0.5, 20.0, True),
+    (2, 5001, 3000, 1, 1.0, 3.0, True),        # ragged, B = 2
+    (2, 5001, 3000, 128, 0.0, 3.0, True),
+    (1, 700, 150, 41, 2.0, 2.0, True),         # fewer valid candidates than k
+    (2, 300, 100, 128, 0.0, 1.0, True)])
+def test_sweep_bitwise(dev, b, n, n_valid, k, radius, scale, seams):
     """K4 against its plain version: indices and distances identical (the
     same class rule on the same single-rounded distances), moments as K3's;
-    indices stay in range."""
+    indices stay in range. The seam cases cover every part of the layout:
+    classes with fewer than two valid points, whole invalid tiles, ragged n,
+    exact ties, fewer valid candidates than k, B = 2."""
     pts, valid = (x.to(dev) for x in _cloud(b, n, n_valid, n + k, scale))
+    if seams:
+        pts, valid = _seams(pts, valid, True)
     before = kernels.SWEEP.launches
     got = sweep.fused_sweep(pts, valid, k, radius)
     assert kernels.SWEEP.launches == before + 1

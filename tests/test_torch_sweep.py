@@ -265,3 +265,207 @@ def test_encoder_with_sweep_matches_without():
         got = enc(p, v, sweep=graph)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ K4's rule, restated
+def _seam_cloud(n, seed, dup=False):
+    """A scan with the seams of K4's layout: scattered validity, a run of
+    invalid points in the middle, a few classes with fewer than two valid
+    points (classes 5 and 77 keep at most one), and, with `dup`, every
+    point twice (distance ties across classes)."""
+    g = np.random.default_rng(seed)
+    pts = g.uniform(-6.0, 6.0, (n, 3)).astype(np.float32)
+    if dup:
+        pts[n // 2:] = pts[:n - n // 2]
+    valid = g.random(n) < 0.6
+    valid[n // 3:n // 3 + 150] = False
+    cls = np.arange(n) % 128
+    valid[(cls == 5) | (cls == 77)] = False
+    valid[5] = True
+    return pts, valid
+
+
+U31, U32 = np.uint64(31), np.uint64(32)
+LOW = np.uint64(0xFFFFFFFF)
+
+
+def _mono(d):
+    """Order-preserving unsigned bits of float32 values, as uint64."""
+    u = np.asarray(d, np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(u >> U31 == 1, u ^ np.uint64(0xFFFFFFFF),
+                    u | np.uint64(0x80000000))
+
+
+def _keys(pts, valid):
+    """(n, n_pad) 64-bit keys (distance bits, then the index) of every
+    center against the scan padded to n_pad, invalid points and padding at
+    1e9; and n_pad."""
+    n = len(pts)
+    n_pad = max(256, -(-n // 128) * 128)
+    d = tnb.pairwise_dist2(t(pts), t(pts))[0].numpy()
+    d = np.where(valid[None], d, np.float32(1e9))
+    d = np.pad(d, ((0, 0), (0, n_pad - n)), constant_values=np.float32(1e9))
+    return (_mono(d) << U32) | np.arange(n_pad, dtype=np.uint64)[None], n_pad
+
+
+def _decode(keys, n):
+    d = (keys >> U32).astype(np.uint32)
+    d = np.where(d >> 31 == 1, d ^ np.uint32(0x80000000), ~d).astype(
+        np.uint32)
+    return np.minimum((keys & LOW).astype(np.int64), n - 1), \
+        d.view(np.float32)
+
+
+@pytest.mark.parametrize("n,k,dup", [(777, 17, False), (777, 41, True),
+                                     (300, 128, False), (1000, 1, True)])
+def test_fused_sweep_plain_is_the_class_rule(n, k, dup):
+    """fused_sweep_plain against a second statement of K4's rule: walk a
+    center's keys in ascending order and take each one unless its
+    index-mod-128 class has given two already; the first k taken, in order,
+    are the neighbours (indices clamped to n - 1). Bit for bit."""
+    pts, valid = _seam_cloud(n, n + k, dup)
+    keys, _ = _keys(pts, valid)
+    order = np.sort(keys, axis=1)
+    want = np.empty((n, k), np.uint64)
+    for c in range(n):
+        per_class, taken = np.zeros(128, int), 0
+        for key in order[c]:
+            cls = int(key & 0xFFFFFFFF) % 128
+            if per_class[cls] < 2:
+                per_class[cls] += 1
+                want[c, taken] = key
+                taken += 1
+                if taken == k:
+                    break
+    idx, d2 = (x[0].numpy() for x in sweep.fused_sweep(t(pts), t(valid), k))
+    w_idx, w_d2 = _decode(want, n)
+    np.testing.assert_array_equal(idx, w_idx)
+    np.testing.assert_array_equal(d2.view(np.uint32), w_d2.view(np.uint32))
+
+
+# ------------------------------------------------ model of sweep.cu
+#: csrc/sweep.cu sort_pairs8: Batcher's odd-even merge sort of eight
+#: without its first layer (the pairs come sorted)
+SORT_PAIRS8 = [(0, 2), (1, 3), (4, 6), (5, 7), (1, 2), (5, 6), (0, 4),
+               (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4),
+               (5, 6)]
+KMAX = np.iinfo(np.uint64).max
+
+
+def _merge_halves(o, length):
+    """csrc/sweep.cu merge_halves: the mirror layer, then half-cleaners."""
+    ces = [(o + i, o + length - 1 - i) for i in range(length // 2)]
+    st = length // 4
+    while st > 0:
+        ces += [(o + i, o + i + st) for i in range(length) if not i & st]
+        st //= 2
+    return ces
+
+
+#: a lane's network: four runs of eight from sorted pairs, merged to 32
+LANE_NETWORK = ([(a + o, b + o) for o in (0, 8, 16, 24)
+                 for a, b in SORT_PAIRS8]
+                + _merge_halves(0, 16) + _merge_halves(16, 16)
+                + _merge_halves(0, 32))
+
+
+def _run(network, v):
+    v = list(v)
+    for a, b in network:
+        if v[a] > v[b]:
+            v[a], v[b] = v[b], v[a]
+    return v
+
+
+def test_sort_networks_sort():
+    """0-1 principle: sort_pairs8 sorts every 0/1 input whose pairs are
+    sorted, and merge_halves merges every pair of sorted 0/1 halves, so
+    both do so for keys; the lane's whole network then sorts 32 keys given
+    as 16 sorted pairs (random keys, with repeats)."""
+    for bits in range(256):
+        v = [(bits >> i) & 1 for i in range(8)]
+        if all(v[2 * q] <= v[2 * q + 1] for q in range(4)):
+            assert _run(SORT_PAIRS8, v) == sorted(v), bits
+    for length in (16, 32):
+        h = length // 2
+        for z0 in range(h + 1):
+            for z1 in range(h + 1):
+                v = [0] * z0 + [1] * (h - z0) + [0] * z1 + [1] * (h - z1)
+                assert _run(_merge_halves(0, length), v) == sorted(v)
+    g = np.random.default_rng(0)
+    for _ in range(200):
+        v = np.sort(g.integers(0, 40, (16, 2)), axis=1).ravel().tolist()
+        assert _run(LANE_NETWORK, v) == sorted(v)
+
+
+def _sweep_model(pts, valid, k):
+    """numpy model of csrc/sweep.cu for one scan, vectorized over centers:
+    pack_classes (valid points compacted per class in index order, the two
+    lowest invalid indices), the best two of each class by strict "less
+    than" in slot order, the merge with the invalid keys at the class end,
+    each of a center's 8 lanes sorting its 16 classes' pairs by
+    LANE_NETWORK, and the k-round tournament over the 8 lanes' heads."""
+    n = len(pts)
+    n_pad = max(256, -(-n // 128) * 128)
+    d = tnb.pairwise_dist2(t(pts), t(pts))[0].numpy()
+    key1e9 = int(_mono(np.float32(1e9))) << 32
+    cand = np.empty((n, 256), np.uint64)
+    for j in range(128):
+        members = np.arange(j, n_pad, 128)
+        ok = (members < n) & valid[np.minimum(members, n - 1)]
+        slots, inv = members[ok], members[~ok][:2]
+        b1d = np.full(n, np.inf, np.float32)
+        b2d = b1d.copy()
+        b1t = np.full(n, -1)
+        b2t = b1t.copy()
+        for s, p in enumerate(slots):
+            e = d[:, p]
+            lt1, lt2 = e < b1d, e < b2d
+            b2d, b2t = (np.where(lt1, b1d, np.where(lt2, e, b2d)),
+                        np.where(lt1, b1t, np.where(lt2, s, b2t)))
+            b1d, b1t = np.where(lt1, e, b1d), np.where(lt1, s, b1t)
+
+        def valid_key(bd, bt):
+            idx = slots[np.maximum(bt, 0)] if len(slots) else 0
+            return np.where(bt >= 0, (_mono(bd) << U32)
+                            | np.asarray(idx, np.uint64), KMAX)
+
+        kv0, kv1 = valid_key(b1d, b1t), valid_key(b2d, b2t)
+        ki0, ki1 = (np.uint64(key1e9 | int(inv[i]) if i < len(inv)
+                              else KMAX) for i in range(2))
+        cand[:, 2 * j] = np.minimum(kv0, ki0)
+        cand[:, 2 * j + 1] = np.where(kv0 < ki0, np.minimum(kv1, ki0),
+                                      np.minimum(kv0, ki1))
+    # a group of 8 lanes a center; lane `sub` sorts the pairs of classes
+    # sub + 8 i (i < 16) by LANE_NETWORK
+    runs = np.stack([cand[:, [2 * (sub + 8 * (e // 2)) + e % 2
+                              for e in range(32)]] for sub in range(8)], 1)
+    for a, b in LANE_NETWORK:
+        lo = np.minimum(runs[..., a], runs[..., b])
+        runs[..., b] = np.maximum(runs[..., a], runs[..., b])
+        runs[..., a] = lo
+    assert (runs[..., 1:] > runs[..., :-1]).all()
+    # k rounds: the group's smallest head; its lane advances
+    taken = np.zeros((n, 8), int)
+    rows = np.arange(n)
+    out = np.empty((n, k), np.uint64)
+    for i in range(k):
+        heads = np.where(taken < 32, np.take_along_axis(
+            runs, np.minimum(taken, 31)[..., None], 2)[..., 0], KMAX)
+        win = np.argmin(heads, axis=1)
+        out[:, i] = heads[rows, win]
+        taken[rows, win] += 1
+    return _decode(out, n)
+
+
+@pytest.mark.parametrize("n,k,dup", [(777, 41, True), (1000, 17, False),
+                                     (200, 128, False), (130, 1, True)])
+def test_sweep_kernel_model_matches_plain(n, k, dup):
+    """The algorithm of csrc/sweep.cu, modelled in numpy, gives the plain
+    version's indices and distances bit for bit on the layout's seams."""
+    pts, valid = _seam_cloud(n, 3 * n + k, dup)
+    idx, d2 = _sweep_model(pts, valid, k)
+    ref = sweep.fused_sweep(t(pts), t(valid), k)
+    np.testing.assert_array_equal(idx, ref[0][0].numpy())
+    np.testing.assert_array_equal(d2.view(np.uint32),
+                                  ref[1][0].numpy().view(np.uint32))
