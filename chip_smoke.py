@@ -42,11 +42,34 @@ Phases, in order, each printing one JSON line:
   slam_b  16 frames, same entry point, sweep reuse off, USE_FUSED_MOMENTS:
           K3 beside K2 without moments; the share of normals that match a
           float64 PCA, from K2's moments and from K3's.
+  slam_mt slam_a's configuration with `multi_thread` (the pipelined
+          SlamSystem, odometer depth 1) through run_sequence on the same
+          120 frames: scans/s beside slam_a's, the stage medians, frames
+          accepted, keyframes, staleness events, the ATE (not gated); every
+          frame accounted for, no stage error, K4 launched once a frame.
+          Then 16 frames again with torch's sync debug mode on, for the
+          synchronisations a frame on the odometer thread.
+  slam_robust  120 frames single-threaded with `tpu.robust_register` (the
+          RANSAC solve) under sample.yaml's own edge gates: the ATE, frames
+          accepted and loop edges (printed, not gated); one ransac_kabsch
+          call's time and synchronisations.
+  sequence_parallel  two 16-frame sequences through pipeline.infer's
+          run_inference with `tpu.sequence_parallel: 2` (one engine on one
+          card) and without: the trajectory files must agree.
+  host_chain  8 frames with `tpu.device_preprocess: false` (the host
+          transform chain) on the GPU and on the CPU: the same exit codes,
+          poses within 0.05 deg and 1 cm; the host chain's ms a frame.
+  encoder_options  one frame's extract with the voxel sampler, the knn
+          querier and the ball querier, GPU against CPU: descriptors relerr
+          <= 1e-3; their ms.
   cpu     frames 0-2 of `main` again through the same engine on the CPU (the
           plain versions), and frames 0-2 of slam_a through a CPU
           SlamSystem, held to the GPU results.
-The launch counts are set to 0 just before each of main, slam_a and slam_b
-and read just after; every kernel of a path must have launched in it. Then
+The launch counts are set to 0 just before each path (main, slam_a, slam_b
+and the paths of the phases after them) and read just after; every kernel
+of a path must have launched in it, at shapes held against the plain
+versions in k1-k4 (the pipelined mode's warm-up extracts a batch of four,
+so those shapes are checked at B = 4 too). Then
 one JSON line with every kernel's numbers, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}; with OUT_DIR, the kernel entries also go
 to OUT_DIR/chip_smoke.json. Any failure raises and the script exits
@@ -57,13 +80,18 @@ kernel's time is that of a run of launches between one pair of CUDA events
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import copy
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -73,6 +101,11 @@ N_FRAMES = 8
 CPU_FRAMES = 3
 SLAM_A_FRAMES = 120
 SLAM_B_FRAMES = 16
+HOST_FRAMES = 8
+SYNC_FRAMES = 16
+#: the pipelined mode's warm-up extracts a batch of this many scans
+#: (engine.extract_chunk)
+WARMUP_BATCH = 4
 WEIGHTS = "artifacts/full_size_occ_v2/weights_final.msgpack"
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -93,6 +126,7 @@ CONFIG = dict(
         "LowPassFilter": {"normals_radius": 0.5, "normals_num": 16,
                           "filter_std": 2.0, "flux": 4, "max_remain": -1},
         "CoordinatesNormalization": {"ratio": 60.0},
+        "ToTensor": {"padding_to": -1},
     },
     encoder=dict(npoint=[4096, 1024, 256, 64, 16],
                  radius_list=[[0.05, 0.1], [0.1, 0.2], [0.2, 0.4, 0.4],
@@ -125,8 +159,8 @@ CONFIG = dict(
 #: Edge gates and keyframe spacing for the synthetic world. sample.yaml's
 #: gates (confidence 0.6, rmse 0.5 m, keyframes every ~10 m) are calibrated
 #: to KITTI with the upstream weights. This artifact, with the plain
-#: weighted Kabsch solve (its own evaluation uses the RANSAC solve, which is
-#: not ported yet), registers the occluded synthetic scans 3.3 m apart at
+#: weighted Kabsch solve (phase slam_robust runs the RANSAC solve under
+#: sample.yaml's gates), registers the occluded synthetic scans 3.3 m apart at
 #: rmse 1.4-4.6 m (so does the JAX package: tests/test_torch_full_width.py)
 #: and underestimates the motion between scans further apart:
 #: under sample.yaml's gates four frames in five are dropped, and with wide
@@ -134,6 +168,10 @@ CONFIG = dict(
 #: 2 m becomes a keyframe, and only edges beyond 10 m rmse are dropped.
 SYNTHETIC_GATES = dict(edge_confidence_drop=0.0, edge_rmse_drop=10.0,
                        key_frame_distance=2.0)
+#: the gates configs/infer/ma_synthetic.yaml pairs with the RANSAC solve
+#: (calibrated to its coverage-scaled rmse)
+RANSAC_GATES = dict(edge_confidence_drop=0.3, edge_rmse_drop=1.0,
+                    key_frame_distance="auto", key_frame_distance_0=4.0)
 #: artifacts/full_size_occ_v2/render_meta.json
 WORLD = dict(n_clusters=1200, extent=120.0, pts_per_cluster=800)
 RENDER = dict(sensor_range=45.0, max_points=16384, occlusion_bins=512)
@@ -632,11 +670,13 @@ def run_slam(infer, args, engine, seq_dir: str, out_dir: str):
     return system, log, seconds
 
 
-def slam_summary(system, log, seconds, out_dir, poses) -> dict:
-    """Checks the result tree of a run and summarizes it. Raises if a file
-    is missing, a pose is not finite, the rows do not match the accepted
-    frames, or more than a quarter of the frames were dropped."""
-    n = len(log)
+def slam_summary(system, codes, seconds, out_dir, poses,
+                 max_drop_share=0.25) -> dict:
+    """Checks the result tree of a run (`codes`: every frame's exit code)
+    and summarizes it. Raises if a file is missing, a pose is not finite,
+    the rows do not match the accepted frames, or more than
+    `max_drop_share` of the frames were dropped (None: no such gate)."""
+    n = len(codes)
     files = [f"trajectory.{k}.txt" for k in ("allframes", "allsteps",
                                              "keyframes", "keysteps")]
     for name in files + ["trajectory.pg.g2o"]:
@@ -644,26 +684,109 @@ def slam_summary(system, log, seconds, out_dir, poses) -> dict:
             raise AssertionError(f"{name} was not written")
     rows = np.loadtxt(os.path.join(out_dir, files[0]), ndmin=2)
     steps = np.loadtxt(os.path.join(out_dir, files[1]), ndmin=1).astype(int)
-    dropped = sum(code == "drop" for code, _ in log)
+    dropped = codes.count("drop")
     if rows.shape != (n - dropped, 12) or not np.isfinite(rows).all():
         raise AssertionError(f"trajectory rows {rows.shape} for {n} frames, "
                              f"{dropped} dropped")
-    if dropped > n // 4:
+    if max_drop_share is not None and dropped > n * max_drop_share:
         raise AssertionError(f"{dropped} of {n} frames were dropped")
     pg = system.posegraph_map
     gt = np.stack([(np.linalg.inv(poses[0]) @ poses[i])[:3, 3]
                    for i in steps])
     ate = float(np.sqrt(np.mean(np.sum((rows[:, [3, 7, 11]] - gt) ** 2, 1))))
     rl = system.result_logger
+    odom = [e for e in pg.get_all_edges() if e.type in ("odom", "locz")]
     return dict(
         frames=n, seconds=seconds, scans_per_s=n / seconds,
         stage_ms_median={k: float(np.median(rl.get_time_list(k))) * 1e3
                          for k in rl.time_recorder},
-        codes={c: sum(code == c for code, _ in log)
-               for c in sorted({code for code, _ in log})},
+        codes={c: codes.count(c) for c in sorted(set(codes))},
         dropped=dropped, keyframes=int(pg.key_frame_num),
         loop_edges=sum(e.type == "loop" for e in pg.get_all_edges()),
+        edge_conf_median=float(np.median([e.confidence for e in odom])),
+        edge_rmse_median=float(np.median([e.rmse for e in odom])),
         loop_stats=system.loop.stats, ate_m=ate)
+
+
+def run_slam_mt(infer, kernels, args, engine, seq_dir: str, out_dir: str):
+    """pipeline.infer.run_sequence in the pipelined mode. Every mapping
+    outcome is recorded (a keyframe's refined edge counts as "acpt"), and
+    so are the launches of the warm-up that run_sequence runs first.
+    -> (system, exit codes of all frames, seconds after the warm-up,
+    {(kernel, shape): warm-up launches})."""
+    from deeppointmap_tpu_torch.slam.modules import MappingModule
+    from deeppointmap_tpu_torch.slam.utils import EXIT_CODE
+
+    codes, warm, warm_s = [], collections.Counter(), []
+    process, warmup = MappingModule.process, infer.SlamSystem.warmup
+
+    def recorded(self, new_scan, odom_edge):
+        out = process(self, new_scan, odom_edge)
+        codes.append(out.name if isinstance(out, EXIT_CODE) else "acpt")
+        return out
+
+    def counted_warmup(self, example):
+        t0 = time.perf_counter()
+        before = {(k.name, sh): c for k in kernels.ALL
+                  for sh, c in k.shapes.items()}
+        warmup(self, example)
+        for k in kernels.ALL:
+            for sh, c in k.shapes.items():
+                warm[(k.name, sh)] += c - before.get((k.name, sh), 0)
+        warm_s.append(time.perf_counter() - t0)
+
+    MappingModule.process = recorded
+    infer.SlamSystem.warmup = counted_warmup
+    try:
+        t0 = time.perf_counter()
+        system = infer.run_sequence(args, engine, seq_dir, out_dir)
+        seconds = time.perf_counter() - t0 - sum(warm_s)
+    finally:
+        MappingModule.process = process
+        infer.SlamSystem.warmup = warmup
+    n = len(os.listdir(seq_dir))
+    if system._mapped_count != len(codes) or len(codes) != n - 1:
+        raise AssertionError(f"pipelined run lost frames: {len(codes)} "
+                             f"mapped of {n}")
+    return system, ["acpt"] + codes, seconds, warm
+
+
+@contextlib.contextmanager
+def sync_counter(torch):
+    """Counts, by thread name, the operations that synchronise with the
+    GPU (torch.cuda.set_sync_debug_mode("warn") reports each as a warning
+    in the thread that called it)."""
+    counts = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            counts[threading.current_thread().name] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counts
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def trajectory_diff(out_a: str, out_b: str) -> float:
+    """Largest difference between two result trees' trajectory files."""
+    worst = 0.0
+    for seq in sorted(os.listdir(out_a)):
+        if not seq.startswith("Seq"):
+            continue
+        for name in ("allframes", "allsteps", "keyframes", "keysteps"):
+            a = np.loadtxt(os.path.join(out_a, seq, f"trajectory.{name}.txt"),
+                           ndmin=1)
+            b = np.loadtxt(os.path.join(out_b, seq, f"trajectory.{name}.txt"),
+                           ndmin=1)
+            if a.shape != b.shape or a.size == 0:
+                raise AssertionError(f"{seq} {name}: {a.shape} vs {b.shape}")
+            worst = max(worst, float(np.max(np.abs(a - b))))
+    return worst
 
 
 def drive_unreached(engine, system, calls, infer, args, first_file) -> list:
@@ -786,6 +909,13 @@ def launches_of(kernels, entries, path: str, launched: dict) -> dict:
     return totals
 
 
+def require(launches: dict, names, path: str) -> None:
+    """Fail unless every kernel in `names` launched in `path`."""
+    idle = [name for name in names if launches.get(name, 0) <= 0]
+    if idle:
+        raise AssertionError(f"{path}: {idle} never launched: {launches}")
+
+
 def compare_cpu(cpu, pts, valid, frames) -> list:
     """Frames 0 .. CPU_FRAMES-1 through `cpu` on the inputs the GPU run
     was given; raises unless rotation <= 0.05 deg, translation <= 1 cm,
@@ -843,6 +973,8 @@ def main(out_dir: str = "") -> int:
     from deeppointmap_tpu_torch.data.preprocess import (PreprocessConfig,
                                                         preprocess)
     from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
+    from deeppointmap_tpu_torch.data.readers import read_auto
+    from deeppointmap_tpu_torch.models import decoder as decoder_mod
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.ops import neighbors, normals, sampling, sweep
     from deeppointmap_tpu_torch.pipeline import infer
@@ -870,6 +1002,7 @@ def main(out_dir: str = "") -> int:
               max_spill_store_bytes=max(map(int, re.findall(
                   r"(\d+) bytes spill stores", ptxas)), default=None)))
 
+    sample_gates = {k: CONFIG["slam_system"][k] for k in SYNTHETIC_GATES}
     CONFIG["slam_system"].update(SYNTHETIC_GATES)
     args = config_from_dict(CONFIG, multi_thread=False)
     raw = render_raw(syn, SLAM_A_FRAMES)
@@ -888,9 +1021,13 @@ def main(out_dir: str = "") -> int:
         vs = v if n == N_PAD else torch.ones(1, n, dtype=torch.bool,
                                              device=dev)
         entries.append(check_fps(torch, sampling, xs, vs, k))
-    x4 = torch.from_numpy(pts[:4] / 60.0).float().to(dev)
-    v4 = torch.from_numpy(valid[:4]).to(dev)
+    x4 = torch.from_numpy(pts[:WARMUP_BATCH] / 60.0).float().to(dev)
+    v4 = torch.from_numpy(valid[:WARMUP_BATCH]).to(dev)
     entries.append(check_fps(torch, sampling, x4, v4, npoint[0]))
+    for n, k in list(zip(n_in, npoint))[1:]:
+        entries.append(check_fps(
+            torch, sampling, torch.randn(WARMUP_BATCH, n, 3, device=dev) * 0.3,
+            torch.ones(WARMUP_BATCH, n, dtype=torch.bool, device=dev), k))
     odd = {name: check_fps(torch, sampling, xs, vs, k)["ms"]
            for name, xs, vs, k in odd_fps_cases(torch, dev)}
     emit(dict(phase="k1", card=smi, odd_cases_ms=odd, shapes=[
@@ -914,11 +1051,20 @@ def main(out_dir: str = "") -> int:
     for i in range(e.upsample_layers):
         knn_shapes.append((npoint[n_lv - 1 - i], npoint[n_lv - 2 - i], 3,
                            0.0))
+    # the warm-up's batch of four runs the level graphs and FP at B = 4
+    batched = [(WARMUP_BATCH, *sh) for sh in knn_shapes[4:]]
     stride = int(args.tpu.infomat_stride)
     knn_shapes.append((N_PAD, -(-N_PAD // stride), 1, 0.0))
+    # the knn querier (phase encoder_options) queries each SA's centers
+    for i in range(1, n_lv):
+        knn_shapes.append((npoint[i - 1], npoint[i], e.nsample_list[i][0],
+                           0.0))
     k2 = []
-    for j, (n, s, k, radius) in enumerate(knn_shapes):
-        inputs = knn_inputs(torch, dev, pts[0], valid[0], n, s, radius, j)
+    for j, (b, n, s, k, radius) in enumerate(
+            [(1, *sh) for sh in knn_shapes] + batched):
+        parts = [knn_inputs(torch, dev, pts[i], valid[i], n, s, radius,
+                            100 * j + i) for i in range(b)]
+        inputs = [torch.cat(x) for x in zip(*parts)]
         k2.append(check_knn(torch, neighbors, inputs[0], inputs[1],
                             inputs[2], k, radius))
     odd = {name: check_knn(torch, neighbors, p, v, c, k, radius)["ms"]
@@ -950,9 +1096,19 @@ def main(out_dir: str = "") -> int:
     emit(dict(phase="k4_routes", card=smi, frame=0, routes=route_survivors(
         torch, normals, preprocess, {"filters": pre, "sweep_reuse": pre_wide},
         scan, scan_v, torch.from_numpy(valid[:1]).to(dev))))
+    crop4 = valid[:WARMUP_BATCH] & (np.linalg.norm(
+        pts[:WARMUP_BATCH], axis=2) >= pre.min_dis) & (np.linalg.norm(
+            pts[:WARMUP_BATCH], axis=2) <= pre.max_dis)
     k4 = [check_sweep(torch, sweep, scan, scan_v, k_reuse,
                       pre.normals_radius),
-          check_sweep(torch, sweep, odd_p, odd_v, k_reuse, 2.0)]
+          check_sweep(torch, sweep, odd_p, odd_v, k_reuse, 2.0),
+          # the filters' own width (the K4 route without sweep reuse)
+          check_sweep(torch, sweep, scan, scan_v, k_sweep,
+                      pre.normals_radius),
+          check_sweep(torch, sweep,
+                      torch.from_numpy(pts[:WARMUP_BATCH]).to(dev),
+                      torch.from_numpy(crop4).to(dev), k_reuse,
+                      pre.normals_radius)]
     odd = {f"{name}_k{k}": check_sweep(torch, sweep, p, v, k,
                                        radius if k < 128 else 0.0)["ms"]
            for name, p, v, radius, ks in seams for k in ks}
@@ -972,11 +1128,9 @@ def main(out_dir: str = "") -> int:
     k2_wide_ms = timed_ms(torch, lambda: neighbors.knn_cuda(
         scan, scan, k_reuse, scan_v, pre.normals_radius), 5)
     # K4 at the filters' own width: its cost should not depend on k
-    k4_narrow_ms = timed_ms(torch, lambda: sweep.fused_sweep_cuda(
-        scan, scan_v, k_sweep, pre.normals_radius), 20)
     emit(dict(phase="k4", card=smi, recall_vs_k2=recall, seam_cases_ms=odd,
               k2_ms_at_k4_shape=k2_wide_ms,
-              k4_ms_at_k={str(k_sweep): k4_narrow_ms,
+              k4_ms_at_k={str(k_sweep): k4[2]["ms"],
                           str(k_reuse): k4[0]["ms"]}, shapes=[
         {key: en[key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "library_ms")} for en in k4]))
@@ -999,10 +1153,13 @@ def main(out_dir: str = "") -> int:
 
     # ------------------------------------- SLAM through the CLI's path
     with tempfile.TemporaryDirectory() as tmp:
-        seq_a, seq_b, seq_c = (os.path.join(tmp, d) for d in "abc")
+        seq_a, seq_b, seq_c, seq_d, seq_h = (os.path.join(tmp, d)
+                                             for d in "abcdh")
         write_bins(raw[0], seq_a)
         write_bins(raw[0][:SLAM_B_FRAMES], seq_b)
         write_bins(raw[0][:CPU_FRAMES], seq_c)
+        write_bins(raw[0][SLAM_B_FRAMES:2 * SLAM_B_FRAMES], seq_d)
+        write_bins(raw[0][:HOST_FRAMES], seq_h)
         first_file = os.path.join(seq_a, "000001.bin")
 
         # slam_a: sweep reuse on, K4 for the filters and stage 1
@@ -1027,7 +1184,7 @@ def main(out_dir: str = "") -> int:
                 or min(launches["fps"], launches["knn"]) <= 0:
             raise AssertionError(f"slam_a launches: {launches} "
                                  f"{dict(kernels.SWEEP.shapes)}")
-        summary_a = slam_summary(system_a, log_a, sec_a,
+        summary_a = slam_summary(system_a, [c for c, _ in log_a], sec_a,
                                  os.path.join(tmp, "out_a"), raw[1])
         driven = drive_unreached(engine_a, system_a, calls, infer, args_a,
                                  first_file)
@@ -1048,12 +1205,207 @@ def main(out_dir: str = "") -> int:
                 or launches["sweep"] != 0 or launches["fps"] <= 0:
             raise AssertionError(f"slam_b launches: {launches}")
         normals.USE_FUSED_MOMENTS = False
-        summary_b = slam_summary(system_b, log_b, sec_b,
+        summary_b = slam_summary(system_b, [c for c, _ in log_b], sec_b,
                                  os.path.join(tmp, "out_b"), raw[1])
         emit(dict(phase="slam_b", card=smi, **summary_b, launches=launches,
                   normals_match_f64_pca=normals_share(
                       torch, neighbors, normals, sweep, scan, scan_v,
                       pre.normals_radius)))
+
+        # slam_mt: slam_a's configuration, pipelined
+        args_mt = config_from_dict(CONFIG, multi_thread=True)
+        args_mt.tpu.sweep_reuse = True
+        args_mt.tpu.odometer_pipeline_depth = 1
+        normals.USE_FUSED_SWEEP = True
+        kernels.reset_launches()
+        system_mt, codes_mt, sec_mt, warm = run_slam_mt(
+            infer, kernels, args_mt, engine_a, seq_a,
+            os.path.join(tmp, "out_mt"))
+        launches = launches_of(kernels, entries, "slam_mt", launched)
+        frames_k4 = kernels.SWEEP.shapes[k4_shape] - warm[("sweep",
+                                                           k4_shape)]
+        if frames_k4 != SLAM_A_FRAMES or kernels.KNN.shapes[stage1] != 0:
+            raise AssertionError(f"slam_mt: K4 launched {frames_k4} times "
+                                 f"for {SLAM_A_FRAMES} frames: {launches}")
+        require(launches, ("fps", "knn", "sweep"), "slam_mt")
+        summary_mt = slam_summary(system_mt, codes_mt, sec_mt,
+                                  os.path.join(tmp, "out_mt"), raw[1])
+        # the synchronisations a frame on the odometer thread
+        kernels.reset_launches()
+        with sync_counter(torch) as syncs:
+            run_slam_mt(infer, kernels, args_mt, engine_a, seq_b,
+                        os.path.join(tmp, "out_mt_sync"))
+        launches_of(kernels, entries, "slam_mt_syncs", launched)
+        normals.USE_FUSED_SWEEP = False
+        emit(dict(phase="slam_mt", card=smi, **summary_mt,
+                  scans_per_s_slam_a=summary_a["scans_per_s"],
+                  staleness_events=system_mt._staleness_events,
+                  launches=launches, k4_frame_launches=frames_k4,
+                  warmup_launches={f"{k}{list(sh)}": c
+                                   for (k, sh), c in warm.items() if c},
+                  syncs_per_frame={name: c / SYNC_FRAMES
+                                   for name, c in syncs.items()}))
+
+        # slam_robust: the RANSAC solve under sample.yaml's own gates
+        cfg_r = copy.deepcopy(CONFIG)
+        cfg_r["slam_system"].update(sample_gates)
+        args_r = config_from_dict(cfg_r, multi_thread=False)
+        args_r.tpu.sweep_reuse = True
+        args_r.tpu.robust_register = True
+        engine_r = InferenceEngine(args_r, enc_sd, dec_sd,
+                                   preprocess_cfg=pre_a, device="cuda")
+        solve, calls_r = decoder_mod.ransac_kabsch, []
+
+        def recorded_solve(*a, **kw):
+            calls_r.append(a)
+            return solve(*a, **kw)
+
+        normals.USE_FUSED_SWEEP = True
+        decoder_mod.ransac_kabsch = recorded_solve
+        kernels.reset_launches()
+        try:
+            system_r, log_r, sec_r = run_slam(infer, args_r, engine_r, seq_a,
+                                              os.path.join(tmp, "out_r"))
+        finally:
+            decoder_mod.ransac_kabsch = solve
+        launches = launches_of(kernels, entries, "slam_robust", launched)
+        require(launches, ("fps", "knn", "sweep"), "slam_robust")
+        normals.USE_FUSED_SWEEP = False
+        summary_r = slam_summary(system_r, [c for c, _ in log_r], sec_r,
+                                 os.path.join(tmp, "out_r"), raw[1],
+                                 max_drop_share=None)
+        one = calls_r[0]
+        ransac_ms = timed_ms(torch, lambda: solve(*one), 20)
+        with sync_counter(torch) as syncs:
+            solve(*one)
+            torch.cuda.synchronize()
+        # the same solve on the CPU (the gumbel noise and every log are
+        # computed alike on both devices): the cpu phase's pose bounds
+        got = [x.cpu().numpy() for x in solve(*one)]
+        want = [x.numpy() for x in solve(*(x.cpu() for x in one))]
+        ransac_cpu = dict(
+            rot_deg=rotation_deg(got[0], want[0]),
+            trans_m=float(np.linalg.norm(got[1] - want[1])),
+            inliers=int(want[2].sum()),
+            inliers_differ=int((got[2] != want[2]).sum()),
+            rmse_relerr=relerr(got[3], want[3]))
+        if ransac_cpu["rot_deg"] > 0.05 or ransac_cpu["trans_m"] > 0.01:
+            raise AssertionError(f"ransac_kabsch: GPU and CPU disagree: "
+                                 f"{ransac_cpu}")
+        # the gates the JAX package pairs with the RANSAC solve
+        cfg_m = copy.deepcopy(cfg_r)
+        cfg_m["slam_system"].update(RANSAC_GATES)
+        args_m = config_from_dict(cfg_m, multi_thread=False)
+        args_m.tpu.sweep_reuse = True
+        args_m.tpu.robust_register = True
+        normals.USE_FUSED_SWEEP = True
+        kernels.reset_launches()
+        system_m, log_m, sec_m = run_slam(infer, args_m, engine_r, seq_a,
+                                          os.path.join(tmp, "out_m"))
+        launches_m = launches_of(kernels, entries, "slam_robust_ransac_gates",
+                                 launched)
+        normals.USE_FUSED_SWEEP = False
+        summary_m = slam_summary(system_m, [c for c, _ in log_m], sec_m,
+                                 os.path.join(tmp, "out_m"), raw[1],
+                                 max_drop_share=None)
+        emit(dict(phase="slam_robust", card=smi, **summary_r,
+                  ate_m_slam_a=summary_a["ate_m"], gates=sample_gates,
+                  ransac_calls=len(calls_r), ransac_pairs=int(one[0].shape[0]),
+                  ransac_ms=ransac_ms,
+                  ransac_syncs=syncs[threading.current_thread().name],
+                  ransac_gpu_vs_cpu=ransac_cpu, launches=launches,
+                  with_ransac_gates=dict(
+                      gates=RANSAC_GATES, launches=launches_m,
+                      **{k: summary_m[k] for k in (
+                          "ate_m", "codes", "keyframes", "loop_edges",
+                          "scans_per_s", "edge_conf_median",
+                          "edge_rmse_median")})))
+
+        # sequence_parallel: two sequences through run_inference
+        outs = {}
+        kernels.reset_launches()
+        for sp in (1, 2):
+            outs[sp] = os.path.join(tmp, f"out_sp{sp}")
+            args_sp = config_from_dict(
+                CONFIG, multi_thread=False, device="cuda", weight=WEIGHTS,
+                infer_src=[seq_b, seq_d], infer_tgt=outs[sp], profile=False)
+            args_sp.tpu.sequence_parallel = sp
+            engines_sp = infer.run_inference(args_sp)
+        launches = launches_of(kernels, entries, "sequence_parallel",
+                               launched)
+        require(launches, ("fps", "knn"), "sequence_parallel")
+        diff = trajectory_diff(outs[1], outs[2])
+        if diff > 1e-5:
+            raise AssertionError(f"sequence_parallel trajectories differ "
+                                 f"from the sequential run's by {diff}")
+        emit(dict(phase="sequence_parallel", card=smi, engines=engines_sp,
+                  sequences=2, frames=2 * SLAM_B_FRAMES,
+                  max_abs_diff=diff, launches=launches))
+
+        # host_chain: the host transform chain, GPU against CPU
+        args_h = config_from_dict(CONFIG, multi_thread=False)
+        args_h.tpu.device_preprocess = False
+        if infer.device_preprocess_config(args_h) is not None:
+            raise AssertionError("host_chain: the device chain is on")
+        gpu_h = InferenceEngine(args_h, enc_sd, dec_sd, preprocess_cfg=None,
+                                device="cuda")
+        kernels.reset_launches()
+        system_h, log_h, sec_h = run_slam(infer, args_h, gpu_h, seq_h,
+                                          os.path.join(tmp, "out_h"))
+        launches = launches_of(kernels, entries, "host_chain", launched)
+        require(launches, ("fps", "knn"), "host_chain")
+        cpu_h = InferenceEngine(args_h, enc_sd, dec_sd, preprocess_cfg=None,
+                                device="cpu")
+        _, log_hc, _ = run_slam(infer, args_h, cpu_h, seq_h,
+                                os.path.join(tmp, "out_hc"))
+        host_cmp = compare_slam_cpu(log_hc, log_h)
+        transform = infer.make_infer_transform(args_h)
+        host_ms = []
+        for i in range(HOST_FRAMES):
+            scan_i = read_auto(os.path.join(seq_h, f"{i:06d}.bin"))
+            t0 = time.perf_counter()
+            transform(scan_i)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        emit(dict(phase="host_chain", card=smi,
+                  **slam_summary(system_h, [c for c, _ in log_h], sec_h,
+                                 os.path.join(tmp, "out_h"), raw[1]),
+                  host_transform_ms_median=float(np.median(host_ms)),
+                  cpu=host_cmp, launches=launches))
+
+        # encoder_options: voxel sampler, knn and ball queriers
+        options = {}
+        for name, edit in (
+                ("voxel", dict(sample=[{"type": "voxel", "size": 0.5 / 60,
+                                        "range": 1.0}]
+                               + [{"type": "fps"}] * (n_lv - 1))),
+                ("knn", dict(querier="knn")), ("ball", dict(querier="ball"))):
+            cfg_o = copy.deepcopy(CONFIG)
+            cfg_o["encoder"].update(edit)
+            args_o = config_from_dict(cfg_o, multi_thread=False)
+            gpu_o = InferenceEngine(args_o, enc_sd, dec_sd,
+                                    preprocess_cfg=pre, device="cuda")
+            kernels.reset_launches()
+            got = gpu_o.extract(pts[:1], valid[:1])
+            launches = launches_of(kernels, entries, f"encoder_{name}",
+                                   launched)
+            require(launches, ("fps", "knn"), f"encoder_{name}")
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                gpu_o.extract(pts[:1], valid[:1])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            want = InferenceEngine(args_o, enc_sd, dec_sd, preprocess_cfg=pre,
+                                   device="cpu").extract(pts[:1], valid[:1])
+            err = relerr(got[0], want[0])
+            if err > 1e-3 or not np.array_equal(got[1], want[1]) \
+                    or not np.isfinite(got[0]).all():
+                raise AssertionError(f"encoder option {name}: GPU and CPU "
+                                     f"disagree (desc relerr {err})")
+            options[name] = dict(desc_relerr=err,
+                                 extract_ms_median=float(np.median(ms)),
+                                 tokens_valid=int(got[1].sum()),
+                                 launches=launches)
+        emit(dict(phase="encoder_options", card=smi, **options))
 
         # ---------------------------------------------- CPU comparison
         cpu = InferenceEngine(args, enc_sd, dec_sd, preprocess_cfg=pre,

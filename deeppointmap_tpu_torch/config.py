@@ -8,9 +8,10 @@ YAML-only trees and the same rule, YAML overrides console arguments. The
 port reads the keys of its slices (`encoder_points`, `reg_buckets`,
 `loop_batch_buckets`, `tile_member_buckets`, `extract_chunk`,
 `upload_quant`, `upload_quant_lsb`, `infomat_stride`, `device_preprocess`,
-`sweep_reuse`, `device_cache_mb`, `retain_nonkeyframe_pcd`) and ignores the
-rest (the neighbour grades among them: every query of the port is exact but
-K4's). PyYAML is imported only where a YAML file is read.
+`sweep_reuse`, `device_cache_mb`, `retain_nonkeyframe_pcd`,
+`robust_register`, `sequence_parallel`, `odometer_pipeline_depth`,
+`staleness_fallback`, `staleness_fallback_frac`) and ignores the rest (the
+neighbour grades among them: every query of the port is exact but K4's). PyYAML is imported only where a YAML file is read.
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multi_thread", "-mt", default=False,
                    action="store_true")
     p.add_argument("--use_ros", "-ros", default=False, action="store_true")
+    p.add_argument("--profile", default=False, action="store_true",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "under <infer_tgt>/profile")
     # YAML-only trees
     for tree in ("dataset", "transforms", "encoder", "decoder", "train",
                  "loss", "slam_system"):
@@ -104,6 +108,17 @@ TPU_DEFAULTS = Config(
     sweep_reuse=False,
     # keep non-keyframe point clouds on the host (reference parity)
     retain_nonkeyframe_pcd=True,
+    # sequences run at once, one engine per GPU (capped at the device
+    # count; with --device cpu, that many CPU engines)
+    sequence_parallel=1,
+    # pipelined mode: frames launched on the device before the oldest
+    # result is handed to mapping
+    odometer_pipeline_depth=2,
+    # pipelined mode: serialize the odometer against mapping while the
+    # platform speed x the depth exceeds this share of the keyframe
+    # distance (slam/system._update_staleness_mode)
+    staleness_fallback=True,
+    staleness_fallback_frac=0.9,
 )
 
 

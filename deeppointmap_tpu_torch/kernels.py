@@ -12,6 +12,7 @@ have neither `nvcc` nor a GPU, where the ops take their plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,12 +41,24 @@ def _nvcc() -> str:
     return found
 
 
+def device_guard(device):
+    """Make `device` the calling thread's current CUDA device for the
+    duration: the C entry points set kernel attributes and launch on the
+    current device, which in a worker thread need not be the tensors'."""
+    if device is None:
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.cuda.device(device)
+
+
 class Kernel:
     """One CUDA source, its C entry point and the count of its launches.
 
     `launches` counts the launches made through `launch`, and `shapes`
     counts them by the shape key the op wrapper passes; nothing else
-    changes either."""
+    changes either. Both are updated under the kernel's lock, since the
+    pipelined SLAM mode launches from several threads at once."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  headers: tuple = ()):
@@ -101,15 +114,19 @@ class Kernel:
                 self._fn = f
             return self._fn
 
-    def launch(self, *args, shape: tuple = ()) -> None:
-        """Call the entry point (which launches on the given stream), raise
-        if the launch was refused, and count it under `shape`."""
-        err = self.fn()(*args)
+    def launch(self, *args, device=None, shape: tuple = ()) -> None:
+        """Call the entry point (which launches on the given stream) with
+        `device` current, raise if the launch was refused, and count it
+        under `shape`."""
+        fn = self.fn()
+        with device_guard(device):
+            err = fn(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch "
                                f"(cudaError {err})")
-        self.launches += 1
-        self.shapes[shape] += 1
+        with self._lock:
+            self.launches += 1
+            self.shapes[shape] += 1
 
 
 #: K1: batched farthest-point sampling (csrc/fps.cu).
@@ -140,8 +157,9 @@ def build_all() -> None:
 
 def reset_launches() -> None:
     for k in ALL:
-        k.launches = 0
-        k.shapes.clear()
+        with k._lock:
+            k.launches = 0
+            k.shapes.clear()
 
 
 def stream_ptr(device) -> int:

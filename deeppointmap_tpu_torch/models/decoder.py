@@ -3,8 +3,9 @@ the weighted Kabsch solve (port of deeppointmap_tpu/models/decoder.py).
 
 Descriptors are channel-last (tokens, in_channel + 3) with xyz in the last
 3 channels. Submodules carry the Flax scope names (models/weights.py).
-The training entry point and the RANSAC solver (`tpu.robust_register`)
-are not ported yet; `from_config` refuses the latter.
+`tpu.robust_register` replaces the trimmed Kabsch solve with the RANSAC
+one (ops/kabsch.ransac_kabsch). The training entry point is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from torch.nn import functional as F
 
 from deeppointmap_tpu_torch.models.common import (LN_EPS, MultiHeadAttention,
                                                   sine_pos_embedding)
-from deeppointmap_tpu_torch.ops.kabsch import top_k, weighted_kabsch
+from deeppointmap_tpu_torch.ops.kabsch import (ransac_kabsch, top_k,
+                                               weighted_kabsch)
 
 _CONF_TOPK = 30  # confidence = mean of the first 30 inlier confidences
                  # (reference: system/modules/utils.py:18)
@@ -103,10 +105,13 @@ class Decoder(nn.Module):
 
     def __init__(self, in_channel: int = 128, model_channel: int = 256,
                  attention_layers: int = 3, tau: float = 0.1,
-                 eps_offset: float = 2.0):
+                 eps_offset: float = 2.0, robust_register: bool = False):
         super().__init__()
         self.tau = tau
         self.eps_offset = eps_offset
+        #: the RANSAC solve (tpu.robust_register) in place of the
+        #: reference's trimmed one
+        self.robust_register = robust_register
         self.model_channel = model_channel
         self.attention_layers = attention_layers
         self.projection = nn.Linear(in_channel, model_channel)
@@ -120,13 +125,12 @@ class Decoder(nn.Module):
 
     @classmethod
     def from_config(cls, args) -> "Decoder":
-        if (args.get("tpu") or {}).get("robust_register", False):
-            raise ValueError("tpu.robust_register (RANSAC Kabsch) is not "
-                             "ported yet")
         d = args.decoder
         return cls(in_channel=d.in_channel, model_channel=d.model_channel,
                    attention_layers=d.attention_layers, tau=args.loss.tau,
-                   eps_offset=args.loss.eps_offset)
+                   eps_offset=args.loss.eps_offset,
+                   robust_register=bool((args.get("tpu") or {}).get(
+                       "robust_register", False)))
 
     def correlate(self, src_desc, dst_desc, src_valid, dst_valid):
         """(B, M, C+3) x (B, N, C+3) -> correlated (B, M, mc), (B, N, mc)
@@ -182,7 +186,8 @@ class Decoder(nn.Module):
                                  < num_pairs_actual)
         valid2 = torch.cat([ok_s2d & pair_ok, ok_d2s & pair_ok], dim=0)
 
-        R, t, inlier, rmse = weighted_kabsch(src_coor, dst_coor, conf2, valid2)
+        solver = ransac_kabsch if self.robust_register else weighted_kabsch
+        R, t, inlier, rmse = solver(src_coor, dst_coor, conf2, valid2)
 
         # confidence: mean of the FIRST 30 inlier confidences in pair order
         rank = torch.cumsum(inlier.int(), dim=0) - 1

@@ -6,10 +6,12 @@ InvResMLP blocks) and `upsample_layers` FeaturePropagation layers; at the
 full width (configs/infer/sample.yaml) 16384 points become 256 tokens of
 128 features. Layout (B, N, C) with validity masks, as in the JAX package.
 
-Sampling is FPS (ops/sampling.batched_fps, kernel K1 on the GPU); grouping
-is the hybrid querier with one shared self-kNN per pyramid level
-(LEVEL_GRAPH_REUSE, kernel K2 on the GPU). Voxel sampling and the knn /
-ball queriers are not ported yet and are refused by `from_config`.
+Samplers (yaml `encoder.sample`, per stage): FPS (ops/sampling.batched_fps,
+kernel K1 on the GPU) or voxel-grid sampling (plain PyTorch). Queriers
+(yaml `encoder.querier`): hybrid (the reference default; one shared
+self-kNN per pyramid level, kernel K2 on the GPU), knn (K2) or ball (plain
+PyTorch). The level graphs serve the hybrid querier only, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,9 +22,45 @@ import torch
 from torch import nn
 
 from deeppointmap_tpu_torch.models.common import MLP
-from deeppointmap_tpu_torch.ops.neighbors import (f32, group_points,
-                                                  hybrid_query, knn)
-from deeppointmap_tpu_torch.ops.sampling import batched_fps
+from deeppointmap_tpu_torch.ops.neighbors import (ball_query, f32,
+                                                  group_points, hybrid_query,
+                                                  knn)
+from deeppointmap_tpu_torch.ops.sampling import (batched_fps,
+                                                 batched_voxel_sample)
+
+#: grouping methods of the reference Querier (network/encoder/utils.py:
+#: 18-43); '-t3d' suffixes name its CUDA twins and normalize away here
+QUERIERS = ("knn", "ball", "hybrid")
+#: per-stage sampler: (type, voxel_size, sample_range); size and range are
+#: ignored for fps (reference: pointnext.py:21,30-35)
+DEFAULT_SAMPLE = ("fps", 0.0, 0.0)
+
+
+def _sample_batch(coor, valid, k: int, sample=DEFAULT_SAMPLE):
+    """(B, N, 3), (B, N) -> idx (B, k), sel_valid (B, k)."""
+    if sample[0] == "voxel":
+        return batched_voxel_sample(coor, valid, k, voxel_size=sample[1],
+                                    sample_range=sample[2])
+    return batched_fps(coor, valid, k)
+
+
+def _query_batch(points, centers, k: int, radius: float, points_valid,
+                 querier: str = "hybrid"):
+    """Neighbour grouping by the reference Querier's three methods: knn
+    ignores the radius; ball keeps in-radius points (self-fill outside);
+    hybrid = knn, then out-of-radius neighbours clamped to the nearest.
+    -> idx (B, S, k)."""
+    if querier == "knn":
+        # with fewer than k valid points the tail carries the 1e9 marker;
+        # those slots take the nearest neighbour, so that padded points
+        # are never grouped
+        idx, d2 = knn(points, centers, k, points_valid)
+        return torch.where(d2 >= f32(1e8), idx[..., :1], idx)
+    if querier == "ball":
+        return ball_query(points, centers, k, radius, points_valid)
+    if querier == "hybrid":
+        return hybrid_query(points, centers, k, radius, points_valid)
+    raise ValueError(f"unknown querier {querier!r}: use one of {QUERIERS}")
 
 
 def _hybrid_from_graph(graph, k: int, radius: float, center_idx=None):
@@ -75,26 +113,30 @@ class SetAbstraction(nn.Module):
     """Sample -> group -> MLP -> max-pool (reference: pointnext.py:8-64)."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
-                 in_channel: int, bias: bool = True):
+                 in_channel: int, bias: bool = True, sample=DEFAULT_SAMPLE,
+                 querier: str = "hybrid"):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.sample, self.querier = tuple(sample), querier
         self.mlp = MLP(in_channel + 3, [in_channel * 2], bias=bias)
 
     def forward(self, coor, fea, valid, sweep=None, graph=None):
         # graph: the previous level's shared kNN over `coor`; the sampled
         # centers are a subset of its rows. sweep: the preprocess sweep's
-        # candidate lists over `coor` (stage 1 only)
-        idx, new_valid = batched_fps(coor, valid, self.npoint)
+        # candidate lists over `coor` (stage 1 only). Both serve the hybrid
+        # querier only.
+        idx, new_valid = _sample_batch(coor, valid, self.npoint, self.sample)
         new_coor = group_points(coor, idx)
-        if sweep is not None:
+        hybrid = self.querier == "hybrid"
+        if sweep is not None and hybrid:
             group_idx = _group_from_sweep(idx, valid, sweep, self.nsample,
                                           self.radius)
-        elif graph is not None:
+        elif graph is not None and hybrid:
             group_idx = _hybrid_from_graph(graph, self.nsample, self.radius,
                                            center_idx=idx)
         else:
-            group_idx = hybrid_query(coor, new_coor, self.nsample,
-                                     self.radius, valid)
+            group_idx = _query_batch(coor, new_coor, self.nsample,
+                                     self.radius, valid, self.querier)
         g = self.mlp(_group(coor, fea, new_coor, group_idx, self.radius))
         return new_coor, g.amax(dim=2), new_valid
 
@@ -104,17 +146,17 @@ class LocalAggregation(nn.Module):
     (reference: pointnext.py:67-109)."""
 
     def __init__(self, radius: float, nsample: int, in_channel: int,
-                 bias: bool = True):
+                 bias: bool = True, querier: str = "hybrid"):
         super().__init__()
-        self.radius, self.nsample = radius, nsample
+        self.radius, self.nsample, self.querier = radius, nsample, querier
         self.mlp = MLP(in_channel + 3, [in_channel], bias=bias)
 
     def forward(self, coor, fea, valid, graph=None):
-        if graph is not None:
+        if graph is not None and self.querier == "hybrid":
             group_idx = _hybrid_from_graph(graph, self.nsample, self.radius)
         else:
-            group_idx = hybrid_query(coor, coor, self.nsample, self.radius,
-                                     valid)
+            group_idx = _query_batch(coor, coor, self.nsample, self.radius,
+                                     valid, self.querier)
         g = self.mlp(_group(coor, fea, coor, group_idx, self.radius))
         return g.amax(dim=2)
 
@@ -123,9 +165,11 @@ class InvResMLP(nn.Module):
     """Inverted-residual block (reference: pointnext.py:112-138)."""
 
     def __init__(self, radius: float, nsample: int, in_channel: int,
-                 expansion: int = 4, bias: bool = True):
+                 expansion: int = 4, bias: bool = True,
+                 querier: str = "hybrid"):
         super().__init__()
-        self.la = LocalAggregation(radius, nsample, in_channel, bias)
+        self.la = LocalAggregation(radius, nsample, in_channel, bias,
+                                   querier)
         self.pw_conv = MLP(in_channel, [in_channel * expansion, in_channel],
                            bias=bias, drop_last_act=True)
 
@@ -140,15 +184,16 @@ class Stage(nn.Module):
 
     def __init__(self, npoint: int, radius_list: Sequence[float],
                  nsample_list: Sequence[int], in_channel: int,
-                 expansion: int = 4, bias: bool = True):
+                 expansion: int = 4, bias: bool = True,
+                 sample=DEFAULT_SAMPLE, querier: str = "hybrid"):
         super().__init__()
         self.sa = SetAbstraction(npoint, radius_list[0], nsample_list[0],
-                                 in_channel, bias)
+                                 in_channel, bias, sample, querier)
         self.n_irm = len(radius_list) - 1
         for i in range(1, len(radius_list)):
             self.add_module(f"irm{i - 1}", InvResMLP(
                 radius_list[i], nsample_list[i], in_channel * 2, expansion,
-                bias))
+                bias, querier))
 
     def forward(self, coor, fea, valid, sweep=None, in_graph=None,
                 graph_k: int = 0):
@@ -194,9 +239,12 @@ class Encoder(nn.Module):
                                (16, 16)),
                  in_channel: int = 3, out_channel: int = 128, width: int = 16,
                  expansion: int = 4, upsample_layers: int = 2,
-                 bias: bool = True):
+                 bias: bool = True, sample=None, querier: str = "hybrid"):
         super().__init__()
         self.npoint = tuple(npoint)
+        sample = tuple(tuple(x) for x in (sample or ()))
+        sample += (DEFAULT_SAMPLE,) * (len(self.npoint) - len(sample))
+        self.querier = querier
         self.nsample_list = tuple(tuple(n) for n in nsample_list)
         self.in_channel = in_channel
         self.upsample_layers = upsample_layers
@@ -205,7 +253,7 @@ class Encoder(nn.Module):
         for i in range(len(self.npoint)):
             self.add_module(f"down{i}", Stage(
                 self.npoint[i], radius_list[i], nsample_list[i], widths[-1],
-                expansion, bias))
+                expansion, bias, sample[i], querier))
             widths.append(widths[-1] * 2)
         w = fea2_ch = widths[-1]
         for i in range(upsample_layers):
@@ -222,20 +270,33 @@ class Encoder(nn.Module):
         norm = str(e.get("norm", "LN")).lower()
         if norm != "ln":
             raise ValueError(f"only LayerNorm is supported (got {norm!r})")
+        sample = []
         for s in e.sample:
-            if not str(s["type"]).startswith("fps"):
-                raise ValueError(f"sampler {s['type']!r} is not ported yet: "
-                                 "use 'fps'")
+            kind = str(s["type"])
+            if kind.startswith("fps"):       # fps / fps-t3d are one op here
+                sample.append(DEFAULT_SAMPLE)
+            elif kind == "voxel":
+                sample.append(("voxel", float(s["size"]), float(s["range"])))
+            else:
+                raise ValueError(f"unsupported sampler {kind!r}: use 'fps', "
+                                 "'fps-t3d' or 'voxel'")
+        if len(sample) == 1:
+            sample = sample * len(e.npoint)
+        if len(sample) != len(e.npoint):
+            raise ValueError(f"{len(sample)} samplers for "
+                             f"{len(e.npoint)} stages")
         querier = str(e.get("querier", "hybrid")).lower()
-        if querier not in ("hybrid", "hybrid-t3d"):
-            raise ValueError(f"encoder.querier {querier!r} is not ported "
-                             "yet: use 'hybrid'")
+        querier = querier.removesuffix("-t3d")
+        if querier not in QUERIERS:
+            raise ValueError(f"unknown encoder.querier {querier!r}: use one "
+                             f"of {QUERIERS}")
         return cls(npoint=tuple(e.npoint), radius_list=e.radius_list,
                    nsample_list=e.nsample_list, in_channel=e.in_channel,
                    out_channel=e.out_channel, width=e.width,
                    expansion=e["expansion"],
                    upsample_layers=e.upsample_layers,
-                   bias=e.get("bias", True))
+                   bias=e.get("bias", True), sample=tuple(sample),
+                   querier=querier)
 
     def forward(self, points, valid, sweep=None):
         """sweep: optional (idx (B, N, Ks), dist2 (B, N, Ks)) candidate
@@ -248,13 +309,16 @@ class Encoder(nn.Module):
         graph = None
         n = len(self.npoint)
         for i in range(n):
-            # shared-graph width: the widest consumer among this level's
-            # InvResMLP blocks and the next stage's SA
-            own = max(self.nsample_list[i][1:], default=0)
-            nxt = self.nsample_list[i + 1][0] if i + 1 < n else 0
+            # shared-graph width (hybrid querier): the widest consumer among
+            # this level's InvResMLP blocks and the next stage's SA
+            graph_k = 0
+            if self.querier == "hybrid":
+                own = max(self.nsample_list[i][1:], default=0)
+                nxt = self.nsample_list[i + 1][0] if i + 1 < n else 0
+                graph_k = max(own, nxt)
             c, f, v, graph = getattr(self, f"down{i}")(
                 *levels[-1], sweep=sweep if i == 0 else None,
-                in_graph=graph, graph_k=max(own, nxt))
+                in_graph=graph, graph_k=graph_k)
             levels.append((c, f, v))
 
         c, f, v = levels[-1]

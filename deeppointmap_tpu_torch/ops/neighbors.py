@@ -149,7 +149,7 @@ def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
                        centers.data_ptr(), b, n, s, k, f32(radius * radius),
                        packed.data_ptr(), idx.data_ptr(), d2.data_ptr(),
                        None if mom is None else mom.data_ptr(),
-                       kernels.stream_ptr(dev),
+                       kernels.stream_ptr(dev), device=dev,
                        shape=knn_shape(b, n, s, k, radius))
     if mom is None:
         return idx, d2
@@ -181,6 +181,30 @@ def hybrid_query(points, centers, k: int, radius: float, points_valid):
     nearest neighbour. Returns idx (B, S, k) int64."""
     idx, dist2 = knn(points, centers, k, points_valid)
     return torch.where(dist2 > f32(radius * radius), idx[..., :1], idx)
+
+
+def ball_query(points, centers, k: int, radius: float, points_valid,
+               center_chunk: int = 2048):
+    """First-k-within-radius grouping (reference python fallback: network/
+    encoder/utils.py:57-73): a center's neighbours are the k lowest-INDEX
+    valid points inside its ball; slots beyond them repeat the first one
+    (index 0 when the ball is empty). points (B, N, 3), centers (B, S, 3),
+    points_valid (B, N) -> idx (B, S, k) int64. Plain PyTorch on either
+    device, as the JAX package leaves it to XLA; chunked over centers."""
+    n = points.shape[1]
+    r2 = f32(radius * radius)
+    col = torch.arange(n, device=points.device, dtype=torch.float32)
+    outs = []
+    for c0 in range(0, centers.shape[1], center_chunk):
+        d = pairwise_dist2(centers[:, c0:c0 + center_chunk].float(),
+                           points.float())
+        in_ball = (d <= r2) & points_valid[:, None, :]
+        # in-ball points rank above all others, each group by index
+        score = torch.where(in_ball, -col, -2.0 * n - col)
+        idx = torch.topk(score, k, dim=-1).indices
+        picked = torch.gather(in_ball, -1, idx)
+        outs.append(torch.where(picked, idx, idx[..., :1]))
+    return torch.cat(outs, dim=1)
 
 
 def group_points(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Farthest-point sampling (port of deeppointmap_tpu/ops/sampling.py).
+"""Point sampling (port of deeppointmap_tpu/ops/sampling.py): farthest-point
+sampling and voxel-grid sampling.
 
 `batched_fps` launches the CUDA kernel K1 (csrc/fps.cu) for tensors on the
 GPU and runs `farthest_point_sampling_plain` for tensors on the CPU. Both
@@ -12,9 +13,12 @@ number of valid points are marked invalid in `sel_valid`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from deeppointmap_tpu_torch import kernels
+from deeppointmap_tpu_torch.ops.neighbors import f32
 
 _NEG = -1.0
 _INF = 3.4e38
@@ -80,7 +84,7 @@ def fps_cuda(xyz: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((b, k), dtype=torch.int64, device=xyz.device)
     kernels.FPS.launch(xyz.data_ptr(), valid.data_ptr(), b, n, k,
                        out.data_ptr(), kernels.stream_ptr(xyz.device),
-                       shape=fps_shape(b, n, k))
+                       device=xyz.device, shape=fps_shape(b, n, k))
     return out
 
 
@@ -97,3 +101,79 @@ def batched_fps(xyz: torch.Tensor, valid: torch.Tensor, k: int):
     n_valid = valid.sum(dim=1)
     sel_valid = torch.arange(k, device=xyz.device)[None, :] < n_valid[:, None]
     return idx, sel_valid
+
+
+def voxel_sample(xyz: torch.Tensor, valid: torch.Tensor, k: int,
+                 voxel_size: float = 0.3, sample_range: float = 1.0):
+    """Voxel-grid sampling of one cloud: one representative per occupied
+    voxel (the point nearest its voxel center), voxels ranked by point
+    count, the k fullest kept (reference: network/encoder/utils.py:149-207;
+    yaml `sample: {type: voxel, size, range}`). Points outside
+    `sample_range` (and invalid ones) take part in no voxel.
+
+    xyz (N, 3) normalized, valid (N,) -> idx (k,) int64 into xyz,
+    sel_valid (k,). Plain PyTorch on either device, as the JAX package
+    leaves it to XLA. The order is the JAX package's: by voxel id, then by
+    distance to the voxel center, then by index (its stable lexsort);
+    voxels of equal count rank by their first position in that order."""
+    n = xyz.shape[0]
+    xyz = xyz.float()
+    big = 2.0 * sample_range
+    p = torch.where(valid[:, None], xyz, torch.full_like(xyz, big))
+    sq = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]
+    in_range = (sq <= f32(sample_range * sample_range)) & valid
+    # grid coordinates from coordinates clamped to a static bound: a
+    # clamped point is out of range already, and the bound keeps the id
+    # space within int32
+    dims_max = math.floor(4.0 * sample_range / voxel_size) + 2
+    if float(dims_max) ** 3 >= 2 ** 31:
+        raise ValueError(f"voxel grid id space {dims_max}^3 overflows "
+                         f"int32; increase voxel_size (= {voxel_size}) or "
+                         f"decrease sample_range (= {sample_range})")
+    p = torch.clamp(p, -big, big)
+    # float32 quotients taken in float64 and rounded once: correctly
+    # rounded on either device (a float32 division on the GPU need not
+    # be), so the CPU and the GPU floor every point into the same voxel
+    vox = f32(voxel_size)
+    div = lambda x: (x.double() / vox).float()
+    pmin = p.min(dim=0).values
+    dims = torch.floor(div(p.max(dim=0).values - pmin)) + 1.0
+    rel = p - pmin
+    vxyz = torch.floor(div(rel))
+    vi = vxyz.to(torch.int32)
+    di = dims.to(torch.int32)
+    sentinel = torch.iinfo(torch.int32).max
+    vid = vi[:, 0] + vi[:, 1] * di[0] + vi[:, 2] * di[0] * di[1]
+    vid = torch.where(in_range, vid, torch.full_like(vid, sentinel))
+    off = rel - vxyz * vox - f32(voxel_size / 2.0)
+    dis = (off[:, 0] * off[:, 0] + off[:, 1] * off[:, 1]) \
+        + off[:, 2] * off[:, 2]
+
+    # lexicographic (vid, dis, index): stable sorts, the last key first
+    order = torch.sort(dis, stable=True).indices
+    order = order[torch.sort(vid[order], stable=True).indices]
+    vs = vid[order]
+    pos = torch.arange(n, device=xyz.device)
+    first = torch.ones(n, dtype=torch.bool, device=xyz.device)
+    first[1:] = vs[1:] != vs[:-1]
+    firstpos = torch.where(first, pos, torch.full_like(pos, n))
+    # the next run start after each position: a reverse running minimum
+    nxt = torch.flip(torch.cummin(torch.flip(firstpos, [0]), 0).values, [0])
+    nxt = torch.cat([nxt[1:], torch.full((1,), n, device=xyz.device,
+                                         dtype=nxt.dtype)])
+    score = torch.where(first & (vs < sentinel), nxt - pos,
+                        torch.full_like(pos, -1))
+    # lax.top_k: descending, ties to the lower position
+    top = torch.sort(score, descending=True, stable=True)
+    top_cnt, top_pos = top.values[:k], top.indices[:k]
+    sel_valid = top_cnt > 0
+    idx = torch.where(sel_valid, order[top_pos], torch.zeros_like(top_pos))
+    return idx, sel_valid
+
+
+def batched_voxel_sample(xyz, valid, k: int, voxel_size: float = 0.3,
+                         sample_range: float = 1.0):
+    """(B, N, 3), (B, N) -> idx (B, k) int64, sel_valid (B, k) bool."""
+    outs = [voxel_sample(xyz[b], valid[b], k, voxel_size, sample_range)
+            for b in range(xyz.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])

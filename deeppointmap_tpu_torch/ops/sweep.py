@@ -95,6 +95,7 @@ def radius_moments_cuda(points, valid, radius: float):
                            f32(radius * radius), scratch.data_ptr(),
                            scratch.numel(), mom.data_ptr(),
                            kernels.stream_ptr(points.device),
+                           device=points.device,
                            shape=moments_shape(b, n, radius))
     return _split(mom)
 
@@ -193,7 +194,7 @@ def fused_sweep_cuda(points, valid, k: int, radius: float = 0.0):
                          f32(radius * radius), scratch.data_ptr(),
                          scratch.numel(), idx.data_ptr(), d2.data_ptr(),
                          None if mom is None else mom.data_ptr(),
-                         kernels.stream_ptr(dev),
+                         kernels.stream_ptr(dev), device=dev,
                          shape=sweep_shape(b, n, k, radius))
     if mom is None:
         return idx, d2

@@ -40,9 +40,9 @@ def load_weights(weight_path: str):
         return load_msgpack_weights(weight_path)
     if weight_path.endswith((".pth", ".pt", ".ckpt")):
         raise NotImplementedError(
-            f"{weight_path}: the upstream torch checkpoint schema is not "
-            "ported yet (load_torch_weight arrives in a later slice of the "
-            "port); pass a .msgpack checkpoint")
+            f"{weight_path}: the upstream .pth schema is not read yet "
+            "(load_torch_weight arrives in a later slice of the port); pass "
+            "a .msgpack checkpoint")
     raise ValueError(f"unsupported weight format: {weight_path}")
 
 

@@ -17,9 +17,17 @@ its validity) are kept on the device in a byte-budgeted LRU cache keyed by
 (scan token, name), shared by every caller under one lock: a scan that was
 extracted, or used once as a candidate, is never uploaded again.
 
-An `*_async` method launches its work on the current CUDA stream and
-returns a zero-argument resolver; the resolver copies the results to the
-host with plain `.cpu()` calls, which wait for the stream.
+Host -> device: every upload goes through pinned memory on the engine's
+own upload stream, and the stream of the calling thread waits for it by an
+event, so an upload never waits for the kernels queued before it (a
+pageable copy would synchronise the whole stream).
+
+Device -> host: an `*_async` method launches its work on the current CUDA
+stream, enqueues the copies of its results into pinned host memory right
+behind it and records an event; its zero-argument resolver waits for that
+event only, not for what other threads have queued on the stream since.
+A lazy descriptor thunk copies nothing until it is called, and then copies
+on the engine's fetch stream behind the same event.
 """
 
 from __future__ import annotations
@@ -69,10 +77,6 @@ def _se3(R, t) -> np.ndarray:
     return out
 
 
-def _host(*tensors):
-    return tuple(x.cpu().numpy() for x in tensors)
-
-
 def _materialize(x) -> np.ndarray:
     return np.asarray(x() if callable(x) else x)
 
@@ -93,10 +97,15 @@ class InferenceEngine:
     def __init__(self, args, enc_state, dec_state, preprocess_cfg=None,
                  device="cuda"):
         self.device = torch.device(device)
+        self._upload_stream = self._fetch_stream = None
         if self.device.type == "cuda":
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
             # distances at +-60 m need full f32: TF32 would round them
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            self._upload_stream = torch.cuda.Stream(self.device)
+            self._fetch_stream = torch.cuda.Stream(self.device)
         self.args = args
         self.preprocess_cfg = preprocess_cfg
         self.coor_scale = float(args.slam_system.coor_scale)
@@ -146,10 +155,70 @@ class InferenceEngine:
         self._dcache_bytes = 0
         self._dcache_lock = threading.Lock()
 
-    # ------------------------------------------------------ device cache
+    # ------------------------------------------------- host <-> device
     def _put(self, x) -> torch.Tensor:
-        return torch.tensor(np.asarray(x), device=self.device)
+        """`x` on the device. On a GPU it is staged in pinned memory and
+        copied on the upload stream; the calling thread's stream waits for
+        the copy's event, and the tensor is recorded as used there, so
+        that the allocator does not hand its memory out before that
+        stream is done with it."""
+        arr = np.asarray(x)
+        if self._upload_stream is None:
+            return torch.tensor(arr, device=self.device)
+        host = torch.from_numpy(np.require(arr, requirements="C")).pin_memory()
+        with torch.cuda.stream(self._upload_stream):
+            dev = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._upload_stream)
+        consumer = torch.cuda.current_stream(self.device)
+        consumer.wait_event(ready)
+        dev.record_stream(consumer)
+        return dev
 
+    def _start_fetch(self, *tensors):
+        """Enqueue copies of `tensors` into pinned host memory on the
+        current stream, behind the work that makes them, and record an
+        event after them. -> (a function that waits for that event and
+        returns the NumPy arrays, the event; None on the CPU)."""
+        if self.device.type != "cuda":
+            return (lambda: tuple(t.numpy() for t in tensors)), None
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+
+        def wait():
+            done.synchronize()
+            return tuple(h.numpy() for h in hosts)
+        return wait, done
+
+    def _fetch(self, *tensors):
+        """`tensors` as NumPy arrays, waiting for them and nothing else."""
+        return self._start_fetch(*tensors)[0]()
+
+    def _fetch_later(self, t: torch.Tensor, after):
+        """A thunk that copies `t` to the host when called: on the fetch
+        stream behind the event `after` (recorded where `t` was made), so
+        it waits for that work only."""
+        if after is None:
+            return t.numpy
+        stream = self._fetch_stream
+
+        def thunk():
+            with torch.cuda.stream(stream):
+                stream.wait_event(after)
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            done.synchronize()
+            return h.numpy()
+        return thunk
+
+    # ------------------------------------------------------ device cache
     @staticmethod
     def _nbytes(t: torch.Tensor) -> int:
         return t.element_size() * t.nelement()
@@ -221,7 +290,13 @@ class InferenceEngine:
             return self.encode_points(points, valid), None
         return points, valid
 
-    def _upload_scan(self, points, valid):
+    def upload_scan(self, points, valid):
+        """A scan's points and validity on the device -> (points, validity
+        or None when the int16 code carries it). Tensors already on the
+        device (the pipelined mode uploads on a thread of its own) pass
+        through."""
+        if isinstance(points, torch.Tensor):
+            return points, valid
         pts, v = self._encode_host(np.asarray(points), valid)
         return self._put(pts), None if v is None else self._put(
             np.asarray(v, bool))
@@ -262,8 +337,8 @@ class InferenceEngine:
         one run in chunks of `extract_chunk`, the last padded."""
         b = points.shape[0]
         if b == 1:
-            return _host(*self._extract_impl(
-                *self._dequant_input(*self._upload_scan(points, valid))))
+            return self._fetch(*self._extract_impl(
+                *self._dequant_input(*self.upload_scan(points, valid))))
         chunk = self.extract_chunk
         outs = []
         for start in range(0, b, chunk):
@@ -276,10 +351,9 @@ class InferenceEngine:
                 vc = np.concatenate(
                     [vc, np.zeros((chunk - nb, vc.shape[1]), bool)], 0)
             out = self._extract_impl(
-                *self._dequant_input(*self._upload_scan(pc, vc)))
+                *self._dequant_input(*self.upload_scan(pc, vc)))
             outs.append([x[:nb] for x in out])
-        return tuple(torch.cat(parts, 0).cpu().numpy()
-                     for parts in zip(*outs))
+        return self._fetch(*(torch.cat(parts, 0) for parts in zip(*outs)))
 
     # ---------------------------------------------------------- register
     def _pad_tokens(self, desc: np.ndarray, valid: np.ndarray):
@@ -323,7 +397,7 @@ class InferenceEngine:
             src_desc, src_valid, dst_desc, dst_valid, num_sample)
         R, t, conf, rmse, _ = self.decoder.registration(
             src, dst, sv, dv, k_static, k_actual)
-        R, t, conf, rmse = _host(R, t, conf, rmse)
+        R, t, conf, rmse = self._fetch(R, t, conf, rmse)
         return _se3(R, t), float(conf), float(rmse)
 
     def _register_info(self, src, sv, dst, dv, src_pcd, spv, dst_pcd, dpv,
@@ -334,10 +408,11 @@ class InferenceEngine:
                                   stride=self.infomat_stride)
         return R, t, conf, rmse, info
 
-    @staticmethod
-    def _se3_resolver(R, t, conf, rmse, info):
+    def _se3_resolver(self, R, t, conf, rmse, info):
+        fetch = self._start_fetch(R, t, conf, rmse, info)[0]
+
         def resolve():
-            R_h, t_h, c_h, r_h, i_h = _host(R, t, conf, rmse, info)
+            R_h, t_h, c_h, r_h, i_h = fetch()
             return _se3(R_h, t_h), float(c_h), float(r_h), \
                 np.asarray(i_h, np.float64)
         return resolve
@@ -593,7 +668,7 @@ class InferenceEngine:
                                             cand_pvalid, cand_token)
         m_real = int(np.asarray(cand_kvalid).sum())
         out = self._odometry_impl(
-            *self._upload_scan(points, valid), kp, kv, pc, pv,
+            *self.upload_scan(points, valid), kp, kv, pc, pv,
             num_pairs_for(mb, self.n_tokens, num_sample),
             num_pairs_for(min(m_real, mb), self.n_tokens, num_sample))
         desc, dvalid, pts_valid, R, t, conf, rmse, info, new_pcd = out
@@ -603,17 +678,21 @@ class InferenceEngine:
             for name, x in zip(_SCAN_KEYS, (desc0, dvalid0, new_pcd, pv0)):
                 self._dcache_put((new_token, name), x)
 
+            fetch, done = self._start_fetch(dvalid0, R, t, conf, rmse, info)
+            desc_thunk = self._fetch_later(desc0, done)
+            pv_thunk = self._fetch_later(pv0, done)
+
             def resolve_lazy():
-                dv_h, R_h, t_h, c_h, r_h, i_h = _host(dvalid0, R, t, conf,
-                                                      rmse, info)
-                return (lambda: desc0.cpu().numpy(), dv_h,
-                        lambda: pv0.cpu().numpy(), _se3(R_h, t_h),
+                dv_h, R_h, t_h, c_h, r_h, i_h = fetch()
+                return (desc_thunk, dv_h, pv_thunk, _se3(R_h, t_h),
                         float(c_h), float(r_h), np.asarray(i_h, np.float64))
             return resolve_lazy
 
+        fetch = self._start_fetch(desc, dvalid, pts_valid, R, t, conf, rmse,
+                                  info)[0]
+
         def resolve():
-            d_h, dv_h, pv_h, R_h, t_h, c_h, r_h, i_h = _host(
-                desc, dvalid, pts_valid, R, t, conf, rmse, info)
+            d_h, dv_h, pv_h, R_h, t_h, c_h, r_h, i_h = fetch()
             return (d_h, dv_h, pv_h, _se3(R_h, t_h), float(c_h),
                     float(r_h), np.asarray(i_h, np.float64))
         return resolve
@@ -657,7 +736,7 @@ class InferenceEngine:
                 src, dd[None].expand_as(src), sv, dv[None].expand_as(sv)))
         if not probs:
             return np.zeros((0,))
-        return torch.cat(probs).cpu().numpy()
+        return self._fetch(torch.cat(probs))[0]
 
     @torch.inference_mode()
     def loop_scores(self, src_batch, dst_batch, src_valid, dst_valid
@@ -686,7 +765,7 @@ class InferenceEngine:
             self._put(np.asarray(src_batch, np.float32)),
             self._put(np.asarray(dst_batch, np.float32)),
             self._put(src_valid), self._put(dst_valid))
-        return probs[:b].cpu().numpy()
+        return self._fetch(probs[:b])[0]
 
     # ------------------------------------------------ information matrix
     @torch.inference_mode()
@@ -702,4 +781,4 @@ class InferenceEngine:
             self._put(np.asarray(dst_valid, bool)),
             self._put(SE3[:3, :3]), self._put(SE3[:3, 3]),
             stride=self.infomat_stride)
-        return out.cpu().numpy().astype(np.float64)
+        return self._fetch(out)[0].astype(np.float64)

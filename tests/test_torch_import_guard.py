@@ -30,9 +30,10 @@ def test_modules_found():
                  "slam.pose_graph", "slam.optimizer", "slam.recoder",
                  "slam.utils", "utils.se3", "pipeline.infer",
                  "pipeline.common", "data.dataset", "data.readers",
-                 "ops.sweep", "ops.normals", "kernels", "config"):
+                 "ops.sweep", "ops.normals", "kernels", "config",
+                 "data.transforms", "utils.timer"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 34
+    assert len(MODULES) >= 36
 
 
 def test_importing_every_module_loads_no_jax():

@@ -209,18 +209,24 @@ def test_cli_main_from_yaml(tmp_path):
 
 
 def test_unported_modes_are_refused_before_any_side_effect(tmp_path):
-    """`multi_thread: true` raises before `run_sequence` touches the engine
-    or creates the result directory, and before `main` loads weights."""
+    """What this slice still refuses: a `.pth` weight file raises in
+    `main` before the result directory is created, saying that the
+    upstream schema is not read yet; the map render raises
+    NotImplementedError naming the later slice (run_sequence logs it as a
+    warning)."""
+    yaml = pytest.importorskip("yaml")
     cfg = slam_config(tmp_path)
-    cfg["multi_thread"] = True
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="multi_thread"):
-        tinfer.run_sequence(config_from_dict(cfg), None, str(tmp_path),
-                            str(out))
-    assert not out.exists()
-    cfg["multi_thread"] = False
-    cfg["tpu"]["device_preprocess"] = False
-    with pytest.raises(NotImplementedError, match="device_preprocess"):
-        tinfer.run_sequence(config_from_dict(cfg), None, str(tmp_path),
-                            str(out))
-    assert not out.exists()
+    cfg.pop("multi_thread")
+    cfg["weight"] = str(tmp_path / "DeepPointMapAAAI.pth")
+    cfg["infer_tgt"] = str(tmp_path / "out")
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match=r"upstream \.pth schema"):
+        tinfer.main(["--yaml_file", str(path), "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
+    from deeppointmap_tpu_torch.slam.recoder import ResultLogger
+
+    logger = ResultLogger(config_from_dict(slam_config(tmp_path)), None,
+                          None, str(tmp_path))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        logger.draw_trajectory("trajectory")
