@@ -62,24 +62,50 @@ Phases, in order, each printing one JSON line:
   encoder_options  one frame's extract with the voxel sampler, the knn
           querier and the ball querier, GPU against CPU: descriptors relerr
           <= 1e-3; their ms.
+  accuracy  the JAX package's accuracy block on the port: the two-lap world
+          of scripts/train_full_size.py build_eval_world (192 frames, seed
+          0, artifacts/full_size_occ_v2/render_meta.json) as an npz
+          sequence, single-agent with a copy of full_eval_args (no
+          outlier / low-pass filter, min_dis 0, the RANSAC solve, loop
+          gates 0.6 / 0.3): the Umeyama-aligned ATE with loops on and off,
+          the unaligned ATE, frames accepted and loop edges; once more
+          with sample.yaml's filter chain; the JAX package's TPU numbers
+          beside them, labelled as such. Not gated.
+  ma_inproc  pipeline/infer_multiagents.main in process (3 agent threads and
+          the cloud on one engine) with configs/infer/ma_synthetic.yaml on
+          that world: cloud loop edges and the loop funnel, the merged and
+          per-agent ATE and the largest seam over the shared frames
+          (scripts/ma_quality.py's scoring), frames a second over all
+          agents, wall seconds; K1 and K2 must have launched. Not gated.
+  ma_tcp  the same over TCP with three agent worker processes on the card,
+          on the first 48 frames, and in process on the same frames: every
+          worker exits 0, the cloud holds scans of agents 1-3, and each
+          agent's keyframes equal the in-process run's.
+  viewer  utils/visualization.show_pcd of ma_inproc's merged map (its
+          densest 0.5 m voxels) with normals estimated on the card: K2 at
+          that shape held to its plain version first, then launched by the
+          viewer; the file holds a unit normal for every point.
   cpu     frames 0-2 of `main` again through the same engine on the CPU (the
           plain versions), and frames 0-2 of slam_a through a CPU
           SlamSystem, held to the GPU results.
-The launch counts are set to 0 just before each path (main, slam_a, slam_b
-and the paths of the phases after them) and read just after; every kernel
-of a path must have launched in it, at shapes held against the plain
-versions in k1-k4 (the pipelined mode's warm-up extracts a batch of four,
-so those shapes are checked at B = 4 too). Then
-one JSON line with every kernel's numbers, the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}; with OUT_DIR, the kernel entries also go
-to OUT_DIR/chip_smoke.json. Any failure raises and the script exits
-non-zero. TF32 is off throughout: distances at +-60 m need full f32. A
+The slam_* summaries give the unaligned and the aligned ATE (utils/
+evaluation). The launch counts are set to 0 just before each path (main,
+slam_a, slam_b and the paths of the phases after them) and read just after
+(a TCP worker's launches are its own process's and are not read); every
+kernel of a path must have launched in it, at shapes held against the
+plain versions in k1-k4 (the pipelined mode's warm-up extracts a batch of
+four, so those shapes are checked at B = 4 too). Then one JSON line with
+every kernel's numbers, the nvidia-smi line, and the last line {"ok": true,
+"device": {...}}; with OUT_DIR, the kernel entries also go to
+OUT_DIR/chip_smoke.json and every JSON line to OUT_DIR/chip_smoke.log. Any
+failure raises and the script exits non-zero. TF32 is off throughout: distances at +-60 m need full f32. A
 kernel's time is that of a run of launches between one pair of CUDA events
 (`timed`), with the wrapper's host time a call beside it.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import copy
@@ -101,6 +127,15 @@ N_FRAMES = 8
 CPU_FRAMES = 3
 SLAM_A_FRAMES = 120
 SLAM_B_FRAMES = 16
+#: the JAX package's accuracy world: two laps of 96 frames
+#: (scripts/train_full_size.py build_eval_world)
+ACC_FRAMES = 192
+#: the TCP phase's depth: the first frames of that world
+TCP_FRAMES = 48
+#: agents of pipeline/infer_multiagents
+MA_AGENTS = 3
+#: the merged map in the viewer phase: its densest 0.5 m voxels, at most
+VIEWER_POINTS = 32768
 HOST_FRAMES = 8
 SYNC_FRAMES = 16
 #: the pipelined mode's warm-up extracts a batch of this many scans
@@ -172,14 +207,53 @@ SYNTHETIC_GATES = dict(edge_confidence_drop=0.0, edge_rmse_drop=10.0,
 #: (calibrated to its coverage-scaled rmse)
 RANSAC_GATES = dict(edge_confidence_drop=0.3, edge_rmse_drop=1.0,
                     key_frame_distance="auto", key_frame_distance_0=4.0)
+#: scripts/train_full_size.py full_eval_args: the JAX package's accuracy
+#: block (no outlier / low-pass filter, no distance floor, the RANSAC solve,
+#: loop gates 0.6 / 0.3), for the same model trees as CONFIG
+EVAL_TRANSFORMS = {
+    "VoxelSample": {"voxel_size": 0.3, "retention": "first"},
+    "DistanceSample": {"min_dis": 0.0, "max_dis": 60.0},
+    "CoordinatesNormalization": {"ratio": 60.0},
+    "ToTensor": {"padding_to": -1},
+}
+EVAL_SLAM = dict(
+    coor_scale=60, odometer_candidates_num=1,
+    registration_sample_odometer=0.5, edge_confidence_drop=0.3,
+    edge_rmse_drop=1.0, max_continuous_drop_scan=5,
+    continuous_drop_scan_strategy="recover", key_frame_distance="auto",
+    key_frame_distance_0=4.0, enable_s2m_adjust=True,
+    registration_sample_mapping=0.5, enable_loop_closure=True,
+    loop_detection_gap=0, loop_detection_transaction_gap=10.0,
+    loop_detection_trust_range=3, loop_detection_gnss_distance=-1,
+    loop_detection_pred_distance=100.0, loop_detection_rotation_min=30.0,
+    loop_detection_translation_min=10.0,
+    loop_detection_prob_acpt_threshold=0.6, loop_detection_candidates_num=1,
+    registration_sample_loop=0.5,
+    loop_detection_confidence_acpt_threshold=0.3,
+    enable_global_optimization=True, global_optimization_gap=0)
+#: the JAX package's numbers on that world and these args, for reference
+#: only: TPU, as BASELINE.md records them (:502-504, 550-590), not the port's
+JAX_TPU_REFERENCE = dict(
+    source="JAX package on a TPU, as recorded in BASELINE.md",
+    ate_aligned_m=4.52, ate_aligned_no_loop_m=6.06, ma_merged_ate_m=3.25,
+    ma_cross_agent_loop_edges="80-83")
 #: artifacts/full_size_occ_v2/render_meta.json
 WORLD = dict(n_clusters=1200, extent=120.0, pts_per_cluster=800)
 RENDER = dict(sensor_range=45.0, max_points=16384, occlusion_bins=512)
 TRAJ = dict(radius=50.0, frames_per_lap=96)
 
 
+#: with OUT_DIR, every emitted line is also appended to this file, so the
+#: whole record survives when only the end of the output is kept
+EMIT_COPY: list = []
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for path in EMIT_COPY:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def relerr(a, b) -> float:
@@ -257,6 +331,70 @@ def write_bins(scans, root: str) -> None:
         np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)],
                        1).astype(np.float32).tofile(
             os.path.join(root, f"{i:06d}.bin"))
+
+
+def write_npz(scans, poses, root: str) -> str:
+    """Scans with their ground-truth poses as an npz sequence, the layout
+    of data/synthetic.write_npz_sequence (which renders them itself)."""
+    os.makedirs(root, exist_ok=True)
+    for i, (xyz, pose) in enumerate(zip(scans, poses)):
+        np.savez(os.path.join(root, f"{i}.npz"), lidar_pcd=xyz,
+                 ego_rotation=pose[:3, :3].astype(np.float32),
+                 ego_translation=pose[:3, 3:].astype(np.float32))
+    return root
+
+
+def split_range(total: int, n_agents: int, index: int) -> tuple:
+    """Frames [start, end) of agent `index` (0-based), as
+    data/dataset.BasicAgent slices a sequence (5% overlap)."""
+    ratio = 1.0 / n_agents
+    start = max(ratio * index - 0.05, 0.0)
+    end = min(ratio * (index + 1) + 0.05, 1.0)
+    return int(total * start), int(total * end)
+
+
+def ma_quality(evaluation, pg, gt) -> dict:
+    """The scoring of scripts/ma_quality.py on a merged graph: tokens map
+    to global frames through the agents' slices; the merged ATE keeps the
+    first agent's estimate of each frame; per-agent ATE; the seams, where
+    two agents estimated the same frame. ATEs Umeyama-aligned."""
+    total = len(gt)
+    rows = []
+    for s in pg.get_all_scans():
+        agent, ts = s.token >> 16, s.token & 0xFFFF
+        if 1 <= agent <= MA_AGENTS:
+            g = split_range(total, MA_AGENTS, agent - 1)[0] + ts
+            if g < total:
+                rows.append((g, agent, s.SE3_pred))
+    rows.sort(key=lambda r: (r[0], r[1]))
+    first = {}
+    for g, _, T in rows:
+        first.setdefault(g, T)
+    frames = sorted(first)
+    out = dict(vertices=len(rows), frames_covered=len(frames),
+               frames_total=total,
+               merged_ate_m=evaluation.ate_rmse(
+                   np.stack([first[g] for g in frames]), gt[frames]))
+    for a in range(1, MA_AGENTS + 1):
+        sub = [(g, T) for g, ag, T in rows if ag == a]
+        if len(sub) >= 3:
+            out[f"agent{a}_ate_m"] = evaluation.ate_rmse(
+                np.stack([T for _, T in sub]), gt[[g for g, _ in sub]])
+            out[f"agent{a}_frames"] = len(sub)
+    by_frame = collections.defaultdict(dict)
+    for g, a, T in rows:
+        by_frame[g][a] = T
+    seam_t, seam_r = [], []
+    for d in by_frame.values():
+        agents = sorted(d)
+        for a, b in zip(agents, agents[1:]):
+            D = np.linalg.inv(d[a]) @ d[b]
+            seam_t.append(float(np.linalg.norm(D[:3, 3])))
+            seam_r.append(rotation_deg(D[:3, :3], np.eye(3)))
+    out.update(seam_frames=len(seam_t),
+               seam_trans_max_m=max(seam_t, default=None),
+               seam_rot_max_deg=max(seam_r, default=None))
+    return out
 
 
 # ------------------------------------------------------------------- K1
@@ -675,7 +813,13 @@ def slam_summary(system, codes, seconds, out_dir, poses,
     """Checks the result tree of a run (`codes`: every frame's exit code)
     and summarizes it. Raises if a file is missing, a pose is not finite,
     the rows do not match the accepted frames, or more than
-    `max_drop_share` of the frames were dropped (None: no such gate)."""
+    `max_drop_share` of the frames were dropped (None: no such gate). The
+    ATE is taken over every accepted frame against the ground truth
+    relative to frame 0: unaligned (`ate_m`) and after the Umeyama
+    alignment of utils/evaluation (`ate_aligned_m`, the JAX package's
+    accuracy metric); neither is gated."""
+    from deeppointmap_tpu_torch.utils import evaluation
+
     n = len(codes)
     files = [f"trajectory.{k}.txt" for k in ("allframes", "allsteps",
                                              "keyframes", "keysteps")]
@@ -691,9 +835,9 @@ def slam_summary(system, codes, seconds, out_dir, poses,
     if max_drop_share is not None and dropped > n * max_drop_share:
         raise AssertionError(f"{dropped} of {n} frames were dropped")
     pg = system.posegraph_map
-    gt = np.stack([(np.linalg.inv(poses[0]) @ poses[i])[:3, 3]
-                   for i in steps])
-    ate = float(np.sqrt(np.mean(np.sum((rows[:, [3, 7, 11]] - gt) ** 2, 1))))
+    gt = np.stack([np.linalg.inv(poses[0]) @ poses[i] for i in steps])
+    pred = np.tile(np.eye(4), (len(rows), 1, 1))
+    pred[:, :3, :] = rows.reshape(-1, 3, 4)
     rl = system.result_logger
     odom = [e for e in pg.get_all_edges() if e.type in ("odom", "locz")]
     return dict(
@@ -705,7 +849,9 @@ def slam_summary(system, codes, seconds, out_dir, poses,
         loop_edges=sum(e.type == "loop" for e in pg.get_all_edges()),
         edge_conf_median=float(np.median([e.confidence for e in odom])),
         edge_rmse_median=float(np.median([e.rmse for e in odom])),
-        loop_stats=system.loop.stats, ate_m=ate)
+        loop_stats=system.loop.stats,
+        ate_m=evaluation.ate_rmse(pred, gt, align=False),
+        ate_aligned_m=evaluation.ate_rmse(pred, gt, align=True))
 
 
 def run_slam_mt(infer, kernels, args, engine, seq_dir: str, out_dir: str):
@@ -770,6 +916,51 @@ def sync_counter(torch):
             yield counts
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def host_seconds():
+    """Host seconds spent in the multi-agent path's main calls, by call and
+    by side ('agents': the agent systems' threads, summed over them;
+    'cloud'): AgentSystem.step, CloudSystem.cloud_step, loop closure and
+    the pose-graph optimization inside either. Yields {call@side: [seconds,
+    calls]}."""
+    from deeppointmap_tpu_torch.slam.modules import LoopClosureModule
+    from deeppointmap_tpu_torch.slam.pose_graph import PoseGraph
+    from deeppointmap_tpu_torch.slam.system import AgentSystem, CloudSystem
+
+    totals = collections.defaultdict(lambda: [0.0, 0])
+    lock = threading.Lock()
+    targets = [(AgentSystem, "step", lambda o: o.system_id),
+               (CloudSystem, "cloud_step", lambda o: o.system_id),
+               (LoopClosureModule, "process",
+                lambda o: o.posegraph_map.agent_id),
+               (PoseGraph, "optim", lambda o: o.agent_id)]
+    # (class, name, what the class itself defines: None for inherited)
+    saved = [(cls, name, cls.__dict__.get(name)) for cls, name, _ in targets]
+
+    def wrap(fn, name, side_of):
+        def timed_call(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                key = f"{name}@{'cloud' if side_of(self) == 0 else 'agents'}"
+                with lock:
+                    totals[key][0] += time.perf_counter() - t0
+                    totals[key][1] += 1
+        return timed_call
+
+    for cls, name, side_of in targets:
+        setattr(cls, name, wrap(getattr(cls, name), name, side_of))
+    try:
+        yield totals
+    finally:
+        for cls, name, fn in saved:
+            if fn is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, fn)
 
 
 def trajectory_diff(out_a: str, out_b: str) -> float:
@@ -961,8 +1152,13 @@ def compare_slam_cpu(cpu_log, gpu_log) -> list:
 
 def main(out_dir: str = "") -> int:
     """Run every phase; with `out_dir`, also write the kernel entries
-    there as chip_smoke.json."""
+    there as chip_smoke.json and every emitted line to chip_smoke.log."""
     import torch
+
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        EMIT_COPY.append(os.path.join(out_dir, "chip_smoke.log"))
+        open(EMIT_COPY[-1], "w").close()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1005,7 +1201,8 @@ def main(out_dir: str = "") -> int:
     sample_gates = {k: CONFIG["slam_system"][k] for k in SYNTHETIC_GATES}
     CONFIG["slam_system"].update(SYNTHETIC_GATES)
     args = config_from_dict(CONFIG, multi_thread=False)
-    raw = render_raw(syn, SLAM_A_FRAMES)
+    # the first SLAM_A_FRAMES of the JAX package's two-lap accuracy world
+    raw = render_raw(syn, ACC_FRAMES)
     pts, valid, poses = render_scans(syn, voxel_downsample_indices, raw)
     pre = PreprocessConfig.from_transforms(args.transforms)
 
@@ -1055,6 +1252,8 @@ def main(out_dir: str = "") -> int:
     batched = [(WARMUP_BATCH, *sh) for sh in knn_shapes[4:]]
     stride = int(args.tpu.infomat_stride)
     knn_shapes.append((N_PAD, -(-N_PAD // stride), 1, 0.0))
+    # configs/infer/ma_synthetic.yaml takes the info matrix at stride 1
+    knn_shapes.append((N_PAD, N_PAD, 1, 0.0))
     # the knn querier (phase encoder_options) queries each SA's centers
     for i in range(1, n_lv):
         knn_shapes.append((npoint[i - 1], npoint[i], e.nsample_list[i][0],
@@ -1155,7 +1354,7 @@ def main(out_dir: str = "") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         seq_a, seq_b, seq_c, seq_d, seq_h = (os.path.join(tmp, d)
                                              for d in "abcdh")
-        write_bins(raw[0], seq_a)
+        write_bins(raw[0][:SLAM_A_FRAMES], seq_a)
         write_bins(raw[0][:SLAM_B_FRAMES], seq_b)
         write_bins(raw[0][:CPU_FRAMES], seq_c)
         write_bins(raw[0][SLAM_B_FRAMES:2 * SLAM_B_FRAMES], seq_d)
@@ -1317,8 +1516,8 @@ def main(out_dir: str = "") -> int:
                   with_ransac_gates=dict(
                       gates=RANSAC_GATES, launches=launches_m,
                       **{k: summary_m[k] for k in (
-                          "ate_m", "codes", "keyframes", "loop_edges",
-                          "scans_per_s", "edge_conf_median",
+                          "ate_m", "ate_aligned_m", "codes", "keyframes",
+                          "loop_edges", "scans_per_s", "edge_conf_median",
                           "edge_rmse_median")})))
 
         # sequence_parallel: two sequences through run_inference
@@ -1407,6 +1606,159 @@ def main(out_dir: str = "") -> int:
                                  launches=launches)
         emit(dict(phase="encoder_options", card=smi, **options))
 
+        # accuracy: the JAX package's accuracy block on the port
+        gt = np.stack(raw[1])
+        acc_dir = write_npz(raw[0], raw[1], os.path.join(tmp, "acc_world"))
+        acc_cfg = dict(transforms=EVAL_TRANSFORMS, encoder=CONFIG["encoder"],
+                       decoder=CONFIG["decoder"], loss=CONFIG["loss"],
+                       slam_system=EVAL_SLAM, tpu=dict(robust_register=True))
+        acc = {}
+        kernels.reset_launches()
+        for name, loops, chain in (
+                ("loops_on", True, EVAL_TRANSFORMS),
+                ("loops_off", False, EVAL_TRANSFORMS),
+                ("sample_filter_chain", True, CONFIG["transforms"])):
+            cfg_e = copy.deepcopy(acc_cfg)
+            cfg_e["transforms"] = copy.deepcopy(chain)
+            cfg_e["slam_system"].update(enable_loop_closure=loops,
+                                        enable_global_optimization=loops)
+            args_e = config_from_dict(cfg_e, multi_thread=False)
+            engine_e = InferenceEngine(
+                args_e, enc_sd, dec_sd, device="cuda",
+                preprocess_cfg=infer.device_preprocess_config(args_e))
+            out_e = os.path.join(tmp, f"out_acc_{name}")
+            system_e, log_e, sec_e = run_slam(infer, args_e, engine_e,
+                                              acc_dir, out_e)
+            sm = slam_summary(system_e, [c for c, _ in log_e], sec_e, out_e,
+                              raw[1], max_drop_share=None)
+            acc[name] = dict(
+                ate_aligned_m=sm["ate_aligned_m"], ate_unaligned_m=sm["ate_m"],
+                frames_accepted=sm["frames"] - sm["dropped"],
+                keyframes=sm["keyframes"], loop_edges=sm["loop_edges"],
+                codes=sm["codes"], scans_per_s=sm["scans_per_s"],
+                edge_conf_median=sm["edge_conf_median"],
+                edge_rmse_median=sm["edge_rmse_median"])
+        launches = launches_of(kernels, entries, "accuracy", launched)
+        require(launches, ("fps", "knn"), "accuracy")
+        emit(dict(phase="accuracy", card=smi, frames=ACC_FRAMES,
+                  args="scripts/train_full_size.py full_eval_args",
+                  ate_aligned_m=acc["loops_on"]["ate_aligned_m"],
+                  ate_aligned_no_loop_m=acc["loops_off"]["ate_aligned_m"],
+                  runs=acc, jax_tpu_reference=JAX_TPU_REFERENCE,
+                  launches=launches))
+
+        # ma_inproc: pipeline/infer_multiagents in process, 3 agents and
+        # the cloud on one engine, on the same world
+        import yaml
+
+        from deeppointmap_tpu_torch.pipeline import infer_multiagents as ima
+        from deeppointmap_tpu_torch.utils import evaluation
+
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "infer", "ma_synthetic.yaml")) as f:
+            ma_cfg = yaml.safe_load(f)
+
+        def ma_run(seq, name, transport):
+            """One run of infer_multiagents.main -> (cloud, its output
+            directory, wall seconds, launches in this process)."""
+            out = os.path.join(tmp, name)
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(dict(ma_cfg, infer_src=[seq], infer_tgt=out),
+                               f)
+            kernels.reset_launches()
+            with host_seconds() as spent:
+                t0 = time.perf_counter()
+                cloud = ima.main(["--yaml_file", path, "--weight", WEIGHTS,
+                                  "--transport", transport])
+                wall = time.perf_counter() - t0
+            return cloud, out, wall, launches_of(kernels, entries, name,
+                                                 launched), dict(spent)
+
+        def loop_edges(cloud):
+            edges = [e for e in cloud.posegraph_map.get_all_edges()
+                     if e.type == "loop"]
+            return dict(loop_edges=len(edges), cross_agent_loop_edges=sum(
+                (e.src_scan_token >> 16) != (e.dst_scan_token >> 16)
+                for e in edges))
+
+        def agent_frames(total):
+            return sum(b - a for a, b in (split_range(total, MA_AGENTS, i)
+                                          for i in range(MA_AGENTS)))
+
+        cloud_ma, _, wall_ma, launches, spent = ma_run(
+            acc_dir, "ma_inproc", "inproc")
+        require(launches, ("fps", "knn"), "ma_inproc")
+        emit(dict(phase="ma_inproc", card=smi, frames=ACC_FRAMES,
+                  agents=MA_AGENTS, config="configs/infer/ma_synthetic.yaml",
+                  **loop_edges(cloud_ma), loop_funnel=cloud_ma.loop.stats,
+                  **ma_quality(evaluation, cloud_ma.posegraph_map, gt),
+                  agent_frames=agent_frames(ACC_FRAMES),
+                  frames_per_s=agent_frames(ACC_FRAMES) / wall_ma,
+                  wall_s=wall_ma, host_seconds_calls=spent,
+                  launches=launches, jax_tpu_reference=JAX_TPU_REFERENCE))
+
+        # ma_tcp: three agent worker processes on the card, at a reduced
+        # depth, against an in-process run over the same frames
+        tcp_dir = write_npz(raw[0][:TCP_FRAMES], raw[1][:TCP_FRAMES],
+                            os.path.join(tmp, "tcp_world"))
+        tcp = {t: ma_run(tcp_dir, f"ma_{t}_{TCP_FRAMES}", t)
+               for t in ("tcp", "inproc")}
+        steps = {t: [np.loadtxt(os.path.join(
+            tcp[t][1], f"agent_{i}", "trajectory.keysteps.txt"), ndmin=1)
+            for i in range(1, MA_AGENTS + 1)] for t in tcp}
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(steps["tcp"], steps["inproc"]))
+        held = sorted({s.agent_id for s in
+                       tcp["tcp"][0].posegraph_map.get_all_scans()})
+        if held != list(range(1, MA_AGENTS + 1)) or not same:
+            raise AssertionError(f"ma_tcp: the cloud holds agents {held}; "
+                                 f"keyframes equal to in-process: {same}")
+        emit(dict(phase="ma_tcp", card=smi, frames=TCP_FRAMES,
+                  agents=MA_AGENTS, workers_exit_0=True, cloud_agents=held,
+                  keyframes_per_agent=[len(x) for x in steps["tcp"]],
+                  keyframes_equal_inproc=same,
+                  cloud_vertices={t: tcp[t][0].posegraph_map.key_frame_num
+                                  for t in tcp},
+                  **{f"{t}_{k}": v for t in tcp
+                     for k, v in loop_edges(tcp[t][0]).items()},
+                  wall_s={t: tcp[t][2] for t in tcp},
+                  frames_per_s={t: agent_frames(TCP_FRAMES) / tcp[t][2]
+                                for t in tcp},
+                  cloud_process_launches=tcp["tcp"][3],
+                  host_seconds_calls={t: tcp[t][4] for t in tcp}))
+
+        # viewer: the merged map of ma_inproc with normals on the card
+        from deeppointmap_tpu_torch.utils.visualization import show_pcd
+
+        merged = cloud_ma.result_logger.world_cloud()
+        view = merged[voxel_downsample_indices(merged, 0.5,
+                                               num=VIEWER_POINTS)]
+        vt = torch.from_numpy(np.ascontiguousarray(view))[None].to(dev)
+        vv = torch.ones(vt.shape[:2], dtype=torch.bool, device=dev)
+        entries.append(check_knn(torch, neighbors, vt, vv, vt, 1, 1.0))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        html = show_pcd([view], window_name="merged map",
+                        estimate_normals=True, open_browser=False,
+                        out_html=os.path.join(tmp, "merged_map.html"),
+                        device="cuda")
+        view_s = time.perf_counter() - t0
+        launches = launches_of(kernels, entries, "viewer", launched)
+        require(launches, ("knn",), "viewer")
+        with open(html) as f:
+            data = json.loads(re.search(r"const DATA = (\[.*?\]);\n",
+                                        f.read(), re.S).group(1))[0]
+        nrm = np.frombuffer(base64.b64decode(data["normals"]),
+                            np.float32).reshape(-1, 3)
+        norms = np.linalg.norm(nrm, axis=1)
+        if len(nrm) != len(view) or not np.allclose(norms, 1.0, atol=1e-3):
+            raise AssertionError(f"viewer: {len(nrm)} normals for "
+                                 f"{len(view)} points")
+        emit(dict(phase="viewer", card=smi, merged_points=len(merged),
+                  shown_points=len(view), html_bytes=os.path.getsize(html),
+                  seconds=view_s, launches=launches))
+
         # ---------------------------------------------- CPU comparison
         cpu = InferenceEngine(args, enc_sd, dec_sd, preprocess_cfg=pre,
                               device="cpu")
@@ -1427,7 +1779,6 @@ def main(out_dir: str = "") -> int:
     if {en["name"] for en in kernels_line["kernels"]} != set(SOURCES):
         raise AssertionError("a kernel is missing from the kernels line")
     if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, entries=entries), f, indent=1)
     emit(kernels_line)

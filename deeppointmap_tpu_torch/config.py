@@ -10,8 +10,11 @@ port reads the keys of its slices (`encoder_points`, `reg_buckets`,
 `upload_quant`, `upload_quant_lsb`, `infomat_stride`, `device_preprocess`,
 `sweep_reuse`, `device_cache_mb`, `retain_nonkeyframe_pcd`,
 `robust_register`, `sequence_parallel`, `odometer_pipeline_depth`,
-`staleness_fallback`, `staleness_fallback_frac`) and ignores the rest (the
-neighbour grades among them: every query of the port is exact but K4's). PyYAML is imported only where a YAML file is read.
+`staleness_fallback`, `staleness_fallback_frac`, `agent_platform`) and
+ignores the rest (the neighbour grades among them: every query of the port
+is exact but K4's), except `encoder_bf16: true`, which the entry points
+refuse (`refuse_unported`). PyYAML is imported only where a YAML file is
+read.
 """
 
 from __future__ import annotations
@@ -61,8 +64,8 @@ def str_to_bool(s: str) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The arguments of the JAX package's CLI that single-agent inference
-    reads, plus `--device`."""
+    """The arguments of the JAX package's CLI that inference reads (single
+    agent and multi-agent), plus `--device`."""
     p = argparse.ArgumentParser(description="DeepPointMap SLAM (PyTorch/CUDA)")
     p.add_argument("--name", default="DeepPointMap", type=str)
     p.add_argument("--version", default="v1.0", type=str)
@@ -86,6 +89,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=False, action="store_true",
                    help="write a torch.profiler Chrome trace of the run "
                         "under <infer_tgt>/profile")
+    # multi-agent transport (pipeline/infer_multiagents.py)
+    p.add_argument("--transport", default="inproc",
+                   choices=["inproc", "tcp"],
+                   help="multi-agent message transport")
+    p.add_argument("--transport_host", default="127.0.0.1", type=str)
+    p.add_argument("--transport_port", default=0, type=int,
+                   help="cloud TCP port (0 = auto-pick)")
+    p.add_argument("--agent_index", default=-1, type=int,
+                   help=">=1: run as a single agent worker process "
+                        "connecting to the cloud over TCP")
     # YAML-only trees
     for tree in ("dataset", "transforms", "encoder", "decoder", "train",
                  "loss", "slam_system"):
@@ -178,3 +191,14 @@ def save_settings(args: Config, path: str) -> None:
     with open(path, "w+", encoding="utf-8") as f:
         for k in sorted(args.keys()):
             f.write(f"{k}: {args[k]}\n")
+
+
+def refuse_unported(args: Config) -> None:
+    """Raise before any side effect for an option of the JAX package that
+    changes results and that the port does not implement: today
+    `tpu.encoder_bf16: true` (the JAX encoder then runs its feature path in
+    bfloat16; the port's runs float32)."""
+    if (args.get("tpu") or {}).get("encoder_bf16", False):
+        raise NotImplementedError(
+            "tpu.encoder_bf16: true is not ported (the port's encoder runs "
+            "float32); remove the key or set it to false")

@@ -12,6 +12,12 @@ The port's submodules carry the Flax scope names, so the map is
 mechanical: `a/b/kernel` -> `a.b.weight` transposed (Dense (in, out) ->
 Linear (out, in)), `scale` -> `weight` (LayerNorm), `in_proj_kernel`
 (C, 3C) -> `in_proj_weight` (3C, C).
+
+`load_torch_weight` reads the reference's `.pth` schema ({'encoder':
+state_dict, 'decoder': state_dict} of its torch modules, reference:
+pipeline/infer.py:63-65): `convert_encoder` / `convert_decoder` (copies of
+the JAX package's) lay the reference's names onto a Flax tree, and the map
+above takes it from there, so both formats reach one set of names.
 """
 
 from __future__ import annotations
@@ -148,3 +154,143 @@ def load_msgpack_weights(path: str):
     ...}) -> (encoder state dict, decoder state dict)."""
     blob = read_flax_msgpack(path)
     return state_dicts_from_jax(blob["encoder"], blob["decoder"])
+
+
+# ------------------------------------------------ the reference's .pth
+# Layout rules (reference torch modules -> Flax tree):
+#   Conv1d (out, in, 1)    -> Dense kernel (in, out) = w[:, :, 0].T
+#   Conv2d (out, in, 1, 1) -> Dense kernel (in, out) = w[:, :, 0, 0].T
+#   Linear (out, in)       -> Dense kernel (in, out) = w.T
+#   LayerNorm weight/bias  -> scale/bias
+#   MHA in_proj_weight (3C, C) -> in_proj_kernel (C, 3C) = w.T
+
+def _t(w):  # torch Linear / MHA in_proj
+    return np.asarray(w).T
+
+
+def _c1(w):  # Conv1d k=1
+    return np.asarray(w)[:, :, 0].T
+
+
+def _c2(w):  # Conv2d k=1x1
+    return np.asarray(w)[:, :, 0, 0].T
+
+
+def _set(tree: dict, path: str, value) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.asarray(value, dtype=np.float32)
+
+
+def _np(sd: Mapping, key: str) -> np.ndarray:
+    v = sd[key]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _mlp_block(tree, sd, torch_prefix, flax_prefix, n_layers, conv):
+    """build_mlp stack: torch indices 0,1[,3,4,...] = conv,ln pairs with the
+    relu (no params) between pairs (reference:
+    network/encoder/utils.py:378-389)."""
+    for i in range(n_layers):
+        ti = i * 3  # conv at 0, norm at 1, act at 2, next conv at 3 ...
+        _set(tree, f"{flax_prefix}/dense{i}/kernel",
+             conv(_np(sd, f"{torch_prefix}.{ti}.weight")))
+        if f"{torch_prefix}.{ti}.bias" in sd:
+            _set(tree, f"{flax_prefix}/dense{i}/bias",
+                 _np(sd, f"{torch_prefix}.{ti}.bias"))
+        _set(tree, f"{flax_prefix}/norm{i}/scale",
+             _np(sd, f"{torch_prefix}.{ti + 1}.ln.weight"))
+        _set(tree, f"{flax_prefix}/norm{i}/bias",
+             _np(sd, f"{torch_prefix}.{ti + 1}.ln.bias"))
+
+
+def convert_encoder(sd: Mapping, npoint_count: int, irm_counts) -> dict:
+    """Reference encoder state dict -> Flax encoder tree (no 'params'
+    root). irm_counts[i] = len(radius_list[i]) - 1 InvResMLP blocks per
+    stage (reference: network/encoder/pointnext.py:158-167)."""
+    p: dict = {}
+    _set(p, "point_mlp0/kernel", _c1(_np(sd, "point_mlp0.weight")))
+    _set(p, "point_mlp0/bias", _np(sd, "point_mlp0.bias"))
+    for i in range(npoint_count):
+        base = f"downsampler.{i}"
+        _mlp_block(p, sd, f"{base}.sa.mlp", f"down{i}/sa/mlp", 1, _c2)
+        for j in range(irm_counts[i]):
+            tb = f"{base}.irm.{j}"
+            fb = f"down{i}/irm{j}"
+            _mlp_block(p, sd, f"{tb}.la.mlp", f"{fb}/la/mlp", 1, _c2)
+            _mlp_block(p, sd, f"{tb}.pw_conv", f"{fb}/pw_conv", 2, _c1)
+    # upsamplers: 2-layer 1d mlps
+    ups = sorted({k.split(".")[1] for k in sd if k.startswith("upsampler.")})
+    for i in ups:
+        _mlp_block(p, sd, f"upsampler.{i}.mlp", f"up{i}/mlp", 2, _c1)
+    return p
+
+
+def _attn(p, sd, tb, fb):
+    _set(p, f"{fb}/in_proj_kernel", _t(_np(sd, f"{tb}.in_proj_weight")))
+    _set(p, f"{fb}/in_proj_bias", _np(sd, f"{tb}.in_proj_bias"))
+    _set(p, f"{fb}/out_proj/kernel", _t(_np(sd, f"{tb}.out_proj.weight")))
+    _set(p, f"{fb}/out_proj/bias", _np(sd, f"{tb}.out_proj.bias"))
+
+
+def _seq_head(p, sd, tb, fb, names=("dense0", "dense1")):
+    """Conv1d-relu-Conv1d heads (similarity / coarse pairing / loop mlp)."""
+    for ti, fn in zip((0, 2), names):
+        _set(p, f"{fb}/{fn}/kernel", _c1(_np(sd, f"{tb}.{ti}.weight")))
+        _set(p, f"{fb}/{fn}/bias", _np(sd, f"{tb}.{ti}.bias"))
+
+
+def convert_decoder(sd: Mapping, attention_layers: int = 3) -> dict:
+    """Reference decoder state dict -> Flax decoder tree (no 'params'
+    root)."""
+    p: dict = {}
+    _set(p, "projection/kernel", _c1(_np(sd, "projection.weight")))
+    _set(p, "projection/bias", _np(sd, "projection.bias"))
+    for i in range(attention_layers):
+        tb = f"descriptor_attention.{i}"
+        fb = f"attn{i}"
+        _attn(p, sd, f"{tb}.self_attn", f"{fb}/self_attn")
+        _attn(p, sd, f"{tb}.cross_attn", f"{fb}/cross_attn")
+        for ti, fn in ((0, "mlp0"), (2, "mlp1")):
+            _set(p, f"{fb}/{fn}/kernel", _t(_np(sd, f"{tb}.mlp.{ti}.weight")))
+            _set(p, f"{fb}/{fn}/bias", _np(sd, f"{tb}.mlp.{ti}.bias"))
+        for norm in ("norm1", "norm2", "norm3"):
+            _set(p, f"{fb}/{norm}/scale", _np(sd, f"{tb}.{norm}.weight"))
+            _set(p, f"{fb}/{norm}/bias", _np(sd, f"{tb}.{norm}.bias"))
+    _seq_head(p, sd, "similarity_head", "similarity_head")
+    _seq_head(p, sd, "coarse_pairing_head", "coarse_pairing_head")
+    # offset head: mlp convs at 0, 2, 4 + downsample + head
+    for ti, fn in ((0, "mlp0"), (2, "mlp1"), (4, "mlp2")):
+        _set(p, f"offset_head/{fn}/kernel",
+             _c1(_np(sd, f"offset_head.mlp.{ti}.weight")))
+        _set(p, f"offset_head/{fn}/bias",
+             _np(sd, f"offset_head.mlp.{ti}.bias"))
+    for name in ("downsample", "head"):
+        _set(p, f"offset_head/{name}/kernel",
+             _c1(_np(sd, f"offset_head.{name}.weight")))
+        _set(p, f"offset_head/{name}/bias",
+             _np(sd, f"offset_head.{name}.bias"))
+    _seq_head(p, sd, "loop_head.mlp", "loop_head", names=("mlp0", "mlp1"))
+    for ti, fn in ((0, "proj0"), (2, "proj1")):
+        _set(p, f"loop_head/{fn}/kernel",
+             _t(_np(sd, f"loop_head.projection.{ti}.weight")))
+        _set(p, f"loop_head/{fn}/bias",
+             _np(sd, f"loop_head.projection.{ti}.bias"))
+    return p
+
+
+def load_torch_weight(path: str, args):
+    """A `.pth` weight file in the reference's schema -> (encoder state
+    dict, decoder state dict), the same names and layouts as
+    `load_msgpack_weights` gives. The file holds tensors only, so it is read
+    with `weights_only=True` (no pickled code runs)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    e = args.encoder
+    irm_counts = [len(r) - 1 for r in e.radius_list]
+    enc = convert_encoder(blob["encoder"], len(e.npoint), irm_counts)
+    dec = convert_decoder(blob["decoder"], int(args.decoder.attention_layers))
+    return state_dicts_from_jax(enc, dec)

@@ -9,7 +9,8 @@ import torch
 
 from deeppointmap_tpu_torch.models.decoder import Decoder
 from deeppointmap_tpu_torch.models.encoder import Encoder
-from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
+from deeppointmap_tpu_torch.models.weights import (load_msgpack_weights,
+                                                   load_torch_weight)
 
 logger = logging.getLogger(__name__)
 
@@ -32,17 +33,15 @@ def init_params(args, generator: torch.Generator):
     return tuple(states)
 
 
-def load_weights(weight_path: str):
+def load_weights(args, weight_path: str):
     """-> (encoder state dict, decoder state dict) from a `.msgpack`
-    checkpoint of the JAX package (models/weights.py decodes it). The
-    upstream `.pth` schema is not read yet."""
+    checkpoint of the JAX package, or from a `.pth` file in the
+    reference's schema ({'encoder': sd, 'decoder': sd}; models/weights.py
+    maps either onto the port's modules)."""
     if weight_path.endswith(".msgpack"):
         return load_msgpack_weights(weight_path)
     if weight_path.endswith((".pth", ".pt", ".ckpt")):
-        raise NotImplementedError(
-            f"{weight_path}: the upstream .pth schema is not read yet "
-            "(load_torch_weight arrives in a later slice of the port); pass "
-            "a .msgpack checkpoint")
+        return load_torch_weight(weight_path, args)
     raise ValueError(f"unsupported weight format: {weight_path}")
 
 
@@ -51,7 +50,7 @@ def build_models(args, weight: str = "", seed: int = 0):
     or randomly initialized from `seed` when none is given."""
     if weight:
         logger.info("loading weights from %s", weight)
-        return load_weights(weight)
+        return load_weights(args, weight)
     logger.warning("no --weight given: using randomly initialized models")
     return init_params(args, torch.Generator().manual_seed(seed))
 

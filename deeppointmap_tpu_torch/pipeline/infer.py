@@ -28,7 +28,8 @@ import time
 
 import numpy as np
 
-from deeppointmap_tpu_torch.config import load_config, save_settings
+from deeppointmap_tpu_torch.config import (load_config, refuse_unported,
+                                           save_settings)
 from deeppointmap_tpu_torch.data.dataset import BasicAgent
 from deeppointmap_tpu_torch.data.preprocess import PreprocessConfig
 from deeppointmap_tpu_torch.data.transforms import PointCloudTransforms
@@ -175,7 +176,7 @@ def run_sequence(args, engine, seq_root: str, out_dir: str,
     system.result_logger.save_posegraph("trajectory")
     try:
         system.result_logger.draw_trajectory("trajectory", draft=False)
-    except Exception as e:  # rendering must never kill a finished run
+    except ImportError as e:  # no matplotlib (the card machine has none)
         logger.warning("map render failed: %s", e)
     return system
 
@@ -187,12 +188,13 @@ def _make_engine(args, states, device) -> InferenceEngine:
 
 
 def run_inference(args) -> int:
-    """What `main` does with a loaded config: load the weights (a `.pth`
-    file is refused here, before anything is written), snapshot the
-    settings, then run every existing sequence of `infer_src` into
-    `infer_tgt/SeqNN`, on one engine or, with `tpu.sequence_parallel` > 1,
-    on several at once; under `--profile`, inside a profiler trace.
-    -> the number of engines."""
+    """What `main` does with a loaded config: refuse an unported option
+    and load the weights (`.msgpack` or the reference's `.pth`) before
+    anything is written, snapshot the settings, then run every existing
+    sequence of `infer_src` into `infer_tgt/SeqNN`, on one engine or, with
+    `tpu.sequence_parallel` > 1, on several at once; under `--profile`,
+    inside a profiler trace. -> the number of engines."""
+    refuse_unported(args)
     states = build_models(args, args.weight)
     os.makedirs(args.infer_tgt, exist_ok=True)
     save_settings(args, os.path.join(args.infer_tgt, "settings.yaml"))

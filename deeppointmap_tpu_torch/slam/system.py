@@ -10,7 +10,16 @@ odometer (fused extraction + registration, up to
 odometer's results, depth-1 queue) -> backend (loop closure) -> output,
 each a host thread. A stage thread runs its torch calls under
 `torch.inference_mode()` (which is per thread) with the engine's device
-current. The agent / cloud systems of the JAX package are not ported yet.
+current.
+
+The multi-agent systems (reference: core.py:426-546) sit on top:
+`AgentSystem` is a SlamSystem fed from a dataloader on a thread of its own
+that uploads each accepted scan to the cloud; `CloudSystem` consumes the
+uploads on its own thread, merges the agents' graphs into one `uncertain`
+graph and closes loops across agents. All of them may share one engine:
+its device cache is keyed by scan token (agent id << 16 | timestep) and
+locked, and each thread runs with the engine's device current. An error
+on either thread is re-raised by `wait`.
 """
 
 from __future__ import annotations
@@ -525,3 +534,128 @@ class SlamSystem:
             item = q_in.get()
             if item == EXIT_CODE.exit:
                 break
+
+
+def _run_guarded(system, name: str, fn) -> threading.Thread:
+    """Start `fn` on a daemon thread with the engine's device current and
+    autograd off; an exception is logged and kept in `system._errors`, so
+    that `wait` re-raises it instead of returning a truncated run."""
+    def body():
+        try:
+            device = system.engine.device
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            with torch.inference_mode():
+                fn()
+        except Exception as e:                       # noqa: BLE001
+            logger.exception("%s thread of system %d crashed", name,
+                             system.system_id)
+            system._errors.append(e)
+
+    t = threading.Thread(target=body, name=f"{name}-{system.system_id}",
+                         daemon=True)
+    t.start()
+    return t
+
+
+def _join(system, thread: threading.Thread, what: str) -> None:
+    thread.join()
+    if system._errors:
+        raise RuntimeError(f"{what} of system {system.system_id} failed: "
+                           f"{system._errors[0]!r}") from system._errors[0]
+
+
+class AgentSystem(SlamSystem):
+    """SlamSystem fed from its own dataloader thread
+    (reference: core.py:426-448)."""
+
+    def start(self, dataloader) -> None:
+        def feed():
+            for data in dataloader:
+                self.step(data)
+        self._errors: List[Exception] = []
+        self._feed_thread = _run_guarded(self, "agent", feed)
+
+    def wait(self) -> None:
+        _join(self, self._feed_thread, "agent feed")
+
+
+class CloudSystem(SlamSystem):
+    """Consumes UPLOAD_SCAN messages, merges pose graphs, runs cross-agent
+    loop closure (reference: core.py:451-546)."""
+
+    def __init__(self, args, engine: InferenceEngine,
+                 logger_dir: Optional[str] = None,
+                 comm_module: Optional[CommModule] = None):
+        if comm_module is None:
+            raise ValueError("CloudSystem needs a comm_module")
+        super().__init__(args, engine, system_id=0, logger_dir=logger_dir,
+                         comm_module=comm_module)
+        # merged graphs optimize with isotropic weights from a
+        # spanning-tree initialization (slam/pose_graph.py optim)
+        self.posegraph_map.uncertain = True
+
+    def cloud_step(self, scan_pack: ScanPack,
+                   odom_edge: Optional[PoseGraphEdge],
+                   neighbor_edges: List[PoseGraphEdge]) -> None:
+        """One uploaded keyframe into the merged graph
+        (reference: core.py:466-514)."""
+        pg = self.posegraph_map
+        if scan_pack.type != "full":
+            raise ValueError(f"upload {scan_pack.token} is not a keyframe")
+        pg.add_vertex(scan_pack)
+        if odom_edge is not None:
+            if scan_pack.token == odom_edge.src_scan_token:
+                dst = pg.get_scanpack(odom_edge.dst_scan_token)
+                SE3 = dst.SE3_pred @ se3m.inv(odom_edge.SE3)
+                pg.update_scan_token(scan_pack.token, new_SE3_pred=SE3,
+                                     new_coor_sys=dst.coor_sys)
+            else:
+                src = pg.get_scanpack(odom_edge.src_scan_token)
+                SE3 = src.SE3_pred @ odom_edge.SE3
+                pg.update_scan_token(scan_pack.token, new_SE3_pred=SE3,
+                                     new_coor_sys=src.coor_sys)
+            pg.add_edge(odom_edge)
+        for e in neighbor_edges:
+            pg.add_edge(e)
+
+        # repair stale coordinate systems (reference: core.py:488-505)
+        base = min((s for s in pg.get_all_scans()
+                    if s.agent_id == scan_pack.agent_id),
+                   key=lambda s: s.timestep)
+        scan_now = pg.get_scanpack(scan_pack.token)
+        if base.coor_sys != scan_now.coor_sys:
+            pose_new = coor_new = None
+            for n in pg.get_neighbor_tokens(scan_pack.token):
+                nb = pg.get_scanpack(n)
+                e = pg.get_edge_either(n, scan_pack.token)
+                rel = (e.SE3 if e.src_scan_token == n else se3m.inv(e.SE3))
+                pose_new = nb.SE3_pred @ rel
+                coor_new = nb.coor_sys
+            if pose_new is not None:
+                # (the reference would NameError here on a neighbor-less
+                # scan, core.py:495-505)
+                pg.update_scan_token(scan_pack.token, new_SE3_pred=pose_new,
+                                     new_coor_sys=coor_new)
+
+        self.loop.process(scan_now, targets="others")
+
+    def start(self) -> None:
+        def fetch():
+            while True:
+                src_id, command, data = self.comm_module.fetch_message(
+                    self.system_id)
+                if command == "QUIT":
+                    break
+                if command in ("NO_OP", "AGENT_QUIT"):
+                    continue
+                if command == "UPLOAD_SCAN":
+                    self.cloud_step(data["new_scan"], data["odometer_edge"],
+                                    data["neighbor_edges"])
+                else:
+                    raise RuntimeError(f"unknown operation {command}")
+        self._errors: List[Exception] = []
+        self._fetch_thread = _run_guarded(self, "cloud", fetch)
+
+    def wait(self) -> None:
+        _join(self, self._fetch_thread, "cloud merge")

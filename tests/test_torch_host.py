@@ -198,9 +198,17 @@ def test_pose_graph_optim_and_files_match_jax(graphs, tmp_path):
 
 
 def test_draw_trajectory_names_the_later_slice(graphs, tmp_path):
-    log = trec.ResultLogger(None, None, graphs[1], str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        log.draw_trajectory("trajectory")
+    """The map render, which an earlier slice refused, is ported: on equal
+    graphs both packages' ResultLogger write the same image."""
+    pytest.importorskip("matplotlib")
+    out = []
+    for mod, pg, name in ((jrec, graphs[0], "j"), (trec, graphs[1], "t")):
+        os.makedirs(tmp_path / name)
+        mod.ResultLogger(None, None, pg, str(tmp_path / name)).draw_trajectory(
+            "trajectory", draft=True)
+        out.append((tmp_path / name / "trajectory.map.jpg").read_bytes())
+    assert out[0][:2] == b"\xff\xd8" and len(out[1]) > 1000
+    assert out[1] == out[0]
 
 
 def test_exit_codes_and_comm_module_match_jax():

@@ -209,24 +209,49 @@ def test_cli_main_from_yaml(tmp_path):
 
 
 def test_unported_modes_are_refused_before_any_side_effect(tmp_path):
-    """What this slice still refuses: a `.pth` weight file raises in
-    `main` before the result directory is created, saying that the
-    upstream schema is not read yet; the map render raises
-    NotImplementedError naming the later slice (run_sequence logs it as a
-    warning)."""
+    """What the port still refuses: `tpu.encoder_bf16: true` (the JAX
+    encoder then runs in bfloat16, the port's in float32) raises in both
+    entry points' `main` before the result directory is created."""
     yaml = pytest.importorskip("yaml")
+    from deeppointmap_tpu_torch.pipeline import infer_multiagents as tma
+
     cfg = slam_config(tmp_path)
     cfg.pop("multi_thread")
-    cfg["weight"] = str(tmp_path / "DeepPointMapAAAI.pth")
+    cfg["tpu"]["encoder_bf16"] = True
     cfg["infer_tgt"] = str(tmp_path / "out")
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match=r"upstream \.pth schema"):
-        tinfer.main(["--yaml_file", str(path), "--device", "cpu"])
-    assert not (tmp_path / "out").exists()
-    from deeppointmap_tpu_torch.slam.recoder import ResultLogger
+    for main in (tinfer.main, tma.main):
+        with pytest.raises(NotImplementedError, match="encoder_bf16"):
+            main(["--yaml_file", str(path), "--device", "cpu"])
+        assert not (tmp_path / "out").exists()
 
-    logger = ResultLogger(config_from_dict(slam_config(tmp_path)), None,
-                          None, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        logger.draw_trajectory("trajectory")
+
+def test_pth_weights_run_through_main(tmp_path):
+    """A `.pth` weight file in the reference's schema (written by the JAX
+    package from its random weights) loads to the state dicts those
+    weights map to, and `pipeline.infer.main` runs with it."""
+    yaml = pytest.importorskip("yaml")
+    from deeppointmap_tpu.models.weights import save_torch_weight
+    from deeppointmap_tpu_torch.pipeline.common import build_models
+
+    cfg = slam_config(tmp_path)
+    jargs, targs = jax_config(cfg), config_from_dict(cfg)
+    _, _, enc_p, dec_p = init_params(jargs, seed=3)
+    pth = str(tmp_path / "DeepPointMapAAAI.pth")
+    save_torch_weight(pth, enc_p, dec_p, jargs)
+    got = build_models(targs, pth)
+    for g, w in zip(got, state_dicts_from_jax(enc_p, dec_p)):
+        assert g.keys() == w.keys()
+        assert all(torch.equal(g[k], w[k]) for k in w)
+
+    seq = str(tmp_path / "seq")
+    write_sequence(seq, n=3)
+    cfg.pop("multi_thread")
+    cfg.update(weight=pth, infer_src=[seq], infer_tgt=str(tmp_path / "out"))
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    tinfer.main(["--yaml_file", str(path), "--device", "cpu"])
+    rows = np.loadtxt(tmp_path / "out" / "Seq00" / "trajectory.allframes.txt",
+                      ndmin=2)
+    assert rows.shape == (3, 12) and np.isfinite(rows).all()

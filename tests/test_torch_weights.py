@@ -63,3 +63,32 @@ def test_state_dict_names_and_layout(leaf, expect):
     # Dense (in, out) kernels become Linear (out, in) weights
     want = arr.T if "kernel" in leaf else arr
     np.testing.assert_array_equal(out.numpy(), want)
+
+
+FULL = "artifacts/full_size/weights_final.msgpack"
+
+
+def test_pth_written_by_jax_loads_as_the_msgpack(tmp_path):
+    """The JAX package writes the reference's .pth schema from a committed
+    full-size checkpoint; the port's .pth reader gives the same names and
+    the same tensors, bit for bit, as its msgpack reader of that file."""
+    from deeppointmap_tpu.config import config_from_yaml as j_config_from_yaml
+    from deeppointmap_tpu.models.weights import save_torch_weight
+    from deeppointmap_tpu_torch.config import config_from_yaml
+    from deeppointmap_tpu_torch.models.weights import (load_msgpack_weights,
+                                                       load_torch_weight)
+    from deeppointmap_tpu_torch.pipeline.common import load_weights
+
+    blob = read_flax_msgpack(FULL)
+    path = str(tmp_path / "DeepPointMap-B.pth")
+    save_torch_weight(path, {"params": blob["encoder"]},
+                      {"params": blob["decoder"]},
+                      j_config_from_yaml("configs/infer/sample.yaml"))
+    args = config_from_yaml("configs/infer/sample.yaml")
+    want = load_msgpack_weights(FULL)
+    for got in (load_torch_weight(path, args), load_weights(args, path)):
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert g[k].dtype == w[k].dtype, k
+                assert torch.equal(g[k], w[k]), k
