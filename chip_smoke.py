@@ -7,11 +7,14 @@ Phases, in order, each printing one JSON line:
   device  the card (nvidia-smi name and power limit); fails without CUDA.
   build   nvcc builds the four kernels from csrc/, all at once.
   k1      K1 (FPS) against its plain version at the encoder's five stage
-          shapes (B=1) and at 16384 -> 4096 with B=4: identical indices;
+          shapes with B = 1, 2, 3 and 4 (B > 1: the warm-up's batch and the
+          frames a training step encodes): identical indices;
           also on duplicated points (ties), on a scan that does not fill
           the cluster's partition, and with fewer valid points than k.
   k2      K2 (kNN + radius moments) against its plain version at every
-          shape a path gives it and at the sweep-reuse width (k = 41 with
+          shape a path gives it (the encoder's grouping, level graphs and FP
+          3-NN also at the training steps' B = 2, 3, 4) and at the
+          sweep-reuse width (k = 41 with
           moments): identical neighbour sets and dist2, cnt equal and
           moments within one float32 ulp; also at k = 65 and 128, on
           duplicated points, and with fewer valid points than k.
@@ -85,6 +88,23 @@ Phases, in order, each printing one JSON line:
           densest 0.5 m voxels) with normals estimated on the card: K2 at
           that shape held to its plain version first, then launched by the
           viewer; the file holds a unit normal for every point.
+  train   two-stage training at DeepPointMap-B full width: the scene of
+          scripts/train_full_size.py TRAIN_SCENES[0] (96 frames, ~16k
+          points) rendered by data/synthetic.py, a copy of full_train_args
+          (K_0 3, one epoch a stage) run by `python -m
+          deeppointmap_tpu_torch.pipeline.train` as a subprocess on the
+          card, warm-started from the trained weights: seconds a step and
+          the host's share by stage, peak device memory, loss / top1_acc /
+          stage 2's acc, precision, recall first and last, K1 / K2 launches
+          by shape a step (from its steps.jsonl). Gates: exit 0, finite
+          losses, K1 and K2 launched at the training shapes (all checked in
+          k1 / k2), the encoder and the non-loop heads bit for bit unchanged
+          across stage 2, and weights_final.msgpack running 16 frames of the
+          scene through pipeline/infer. Then stage 1 in process for a few
+          steps with and without tpu.remat (seconds a step, peak memory,
+          launches a step), and one stage-1 batch of two frames on the GPU
+          against the CPU from the same weights: loss relerr <= 1e-4, every
+          gradient ||d|| / ||g|| <= 1e-3 (the worst printed).
   cpu     frames 0-2 of `main` again through the same engine on the CPU (the
           plain versions), and frames 0-2 of slam_a through a CPU
           SlamSystem, held to the GPU results.
@@ -112,6 +132,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -142,6 +163,22 @@ SYNC_FRAMES = 16
 #: (engine.extract_chunk)
 WARMUP_BATCH = 4
 WEIGHTS = "artifacts/full_size_occ_v2/weights_final.msgpack"
+#: the train phase's scene: scripts/train_full_size.py TRAIN_SCENES[0]
+#: (world seed 1, a 20 m circle) under its DEFAULT_WORLD / DEFAULT_RENDER
+TRAIN_SCENE = dict(seed=1, radius=20.0, frames=96)
+TRAIN_WORLD = dict(n_clusters=300, extent=60.0, pts_per_cluster=800)
+TRAIN_RENDER = dict(sensor_range=45.0, max_points=16384)
+#: frames a training step encodes at once: stage 1 at K = 3 gives 4 (S = 2:
+#: K_max // S = 2 map groups) or 3 (S = 3: one group), stage 2 four a side,
+#: the GPU-against-CPU check 2 (one group of S = 2)
+TRAIN_BATCHES = (2, 3, 4)
+#: steps of stage 1 with and without tpu.remat, in process
+REMAT_STEPS = 6
+#: frames of the train scene run through pipeline/infer with the trained
+#: weights
+TRAIN_INFER_FRAMES = 16
+TRAIN_TIMEOUT_S = 420
+REPO = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -1150,6 +1187,281 @@ def compare_slam_cpu(cpu_log, gpu_log) -> list:
     return out
 
 
+# ---------------------------------------------------------------- training
+def train_config(root: str, out: str) -> dict:
+    """scripts/train_full_size.py full_train_args for one epoch of each
+    stage: DeepPointMap-B (CONFIG's trees, configs/infer/sample.yaml) at the
+    16384-point pad, batch 1 in stage 1 (AdamW, cosine) and 4 in stage 2
+    (Adam, cosine). K_0 is 3 where full_train_args starts at 2: with one
+    stage-1 epoch the curriculum never grows, and K = 3 gives steps of both
+    4 and 3 frames."""
+    return dict(
+        dataset=[dict(name="synthetic_full", root=root, scenes=["scene0"],
+                      reader=dict(type="npz"))],
+        transforms=copy.deepcopy(EVAL_TRANSFORMS),
+        encoder=copy.deepcopy(CONFIG["encoder"]),
+        decoder=copy.deepcopy(CONFIG["decoder"]),
+        loss=dict(tau=0.1, offset_value="euclidean", eps_positive=1.0,
+                  eps_offset=2.0, lambda_p=1.0, lambda_c=1.0, lambda_o=1.0),
+        slam_system=dict(coor_scale=60),
+        train=dict(
+            auto_cast=False, save_cycle=1, log_cycle=1, keep_checkpoints=2,
+            registration=dict(
+                num_epochs=1, batch_size=1, K=2, K_0=3, K_mult=2,
+                mult_epoch=1, K_max=4, fill=True, distance=10.0,
+                map_size_max=3, max_pairs=1024,
+                optimizer=dict(type="adamw", kwargs=dict(lr=1e-3)),
+                scheduler=dict(type="cosine", kwargs=dict(eta_min=1e-5))),
+            loop_detection=dict(
+                num_epochs=1, batch_size=4, distance=10.0,
+                optimizer=dict(type="adam", kwargs=dict(lr=1e-3)),
+                scheduler=dict(type="cosine", kwargs=dict(eta_min=1e-5)))),
+        tpu=dict(encoder_points=N_PAD, remat=False, encoder_bf16=False),
+        infer_tgt=out, weight="", checkpoint="")
+
+
+def render_train_scene(syn, root: str) -> str:
+    """The train scene as an npz sequence (scene0/0 under `root`), as
+    scripts/train_full_size.py build_training_worlds renders it."""
+    rng = np.random.default_rng(TRAIN_SCENE["seed"])
+    world = syn.make_world(rng, **TRAIN_WORLD)
+    poses = syn.circle_trajectory(TRAIN_SCENE["frames"],
+                                  radius=TRAIN_SCENE["radius"])
+    return syn.write_npz_sequence(root, world, poses, rng=rng,
+                                  **TRAIN_RENDER)
+
+
+def step_stats(rows) -> dict:
+    """A stage's steps.jsonl rows -> seconds a step (the median after the
+    first step), the host's share (batch building over the whole step),
+    the first step's seconds and the peak device bytes."""
+    tail = rows[1:] or rows
+    total = [r["batch_s"] + r["step_s"] for r in tail]
+    return dict(steps=len(rows),
+                sec_per_step_median=float(np.median(total)),
+                batch_s_median=float(np.median([r["batch_s"] for r in tail])),
+                step_s_median=float(np.median([r["step_s"] for r in tail])),
+                host_share=sum(r["batch_s"] for r in tail) / sum(total),
+                first_step_s=rows[0]["batch_s"] + rows[0]["step_s"],
+                peak_bytes=max(r["peak_bytes"] or 0 for r in rows))
+
+
+def per_step(counts: dict, steps: int) -> dict:
+    return {f"{k}{list(sh)}": c / steps for (k, sh), c in
+            sorted(counts.items())}
+
+
+def train_phase(torch, kernels, entries, launched, smi, tmp,
+                device="cuda") -> dict:
+    """pipeline.train as a subprocess on the card (one epoch of each
+    stage, warm-started from WEIGHTS), the freeze across stage 2, the
+    trained weights through pipeline/infer, stage 1 with and without
+    tpu.remat in process, and one stage-1 batch of two frames on the GPU
+    against the CPU. Raises on any failed check."""
+    import yaml
+
+    from deeppointmap_tpu_torch.config import config_from_dict, \
+        config_from_yaml
+    from deeppointmap_tpu_torch.data import synthetic as syn
+    from deeppointmap_tpu_torch.data.dataset import SlamDatasets
+    from deeppointmap_tpu_torch.models.decoder import Decoder
+    from deeppointmap_tpu_torch.models.encoder import Encoder
+    from deeppointmap_tpu_torch.models.loss import LossConfig
+    from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
+    from deeppointmap_tpu_torch.parallel.train_step import (
+        registration_metrics, to_device)
+    from deeppointmap_tpu_torch.pipeline import infer
+    from deeppointmap_tpu_torch.pipeline.batching import \
+        build_registration_batch
+    from deeppointmap_tpu_torch.pipeline.train import training_transforms
+    from deeppointmap_tpu_torch.pipeline.trainer import Trainer
+    from deeppointmap_tpu_torch.slam.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    root, out = os.path.join(tmp, "train_world"), os.path.join(tmp,
+                                                               "train_log")
+    agent_dir = render_train_scene(syn, root)
+    cfg_path = os.path.join(tmp, "train.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(train_config(root, out), f)
+
+    # -- the CLI, one epoch of each stage, on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeppointmap_tpu_torch.pipeline.train",
+         "--yaml_file", cfg_path, "--weight", WEIGHTS, "--device", device],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=TRAIN_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pipeline.train exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(os.path.join(out, "steps.jsonl")) as f:
+        steps = [json.loads(x) for x in f]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        metrics = [json.loads(x) for x in f]
+    bad = [m for m in metrics if not all(np.isfinite(v) for v in m.values())]
+    if bad or not metrics:
+        raise AssertionError(f"train: {len(bad)} non-finite metric lines")
+    checked = {(en["name"], tuple(en["shape"])) for en in entries}
+    stages = {}
+    for stage in (1, 2):
+        rows = [r for r in steps if r["stage"] == stage]
+        counts = collections.Counter()
+        for r in rows:
+            for name, sh, c in r["launches"]:
+                counts[(name, tuple(sh))] += c
+        unchecked = [key for key in counts if key not in checked]
+        if unchecked:
+            raise AssertionError(f"train stage {stage} ran at unchecked "
+                                 f"shapes {unchecked}")
+        for key, c in counts.items():
+            launched.setdefault(key, {})[f"train_stage{stage}"] = c
+        frames = {sh[0] for name, sh in counts if name == "fps"}
+        need = {3, 4} if stage == 1 else {4}
+        if not need <= frames or not any(name == "knn" and sh[0] in need
+                                         for name, sh in counts):
+            raise AssertionError(f"train stage {stage}: K1 / K2 not at the "
+                                 f"training shapes: {sorted(counts)}")
+        keys = ("loss", "top1_acc") if stage == 1 else \
+            ("loss", "acc", "precision", "recall")
+        mean = [m for m in metrics if m["stage"] == stage][-1]
+        stages[stage] = dict(
+            **step_stats(rows), launches_per_step=per_step(counts, len(rows)),
+            frames_per_step=dict(collections.Counter(
+                max((sh[0] for name, sh, _ in r["launches"] if name == "fps"),
+                    default=0)
+                for r in rows)),
+            first={k: rows[0]["metrics"][k] for k in keys},
+            last={k: rows[-1]["metrics"][k] for k in keys},
+            epoch_mean={k: mean[k] for k in keys})
+
+    # -- stage 2 trains the loop head only
+    ckpt = torch.load(os.path.join(out, "checkpoints", "checkpoint_ep1.pt"),
+                      map_location="cpu", weights_only=True)
+    final_enc, final_dec = load_msgpack_weights(
+        os.path.join(out, "weights_final.msgpack"))
+    moved = [k for k, v in final_enc.items()
+             if not torch.equal(v, ckpt["encoder"][k])]
+    moved += [k for k, v in final_dec.items() if not k.startswith("loop")
+              and not torch.equal(v, ckpt["decoder"][k])]
+    loop_moved = sum(not torch.equal(v, ckpt["decoder"][k])
+                     for k, v in final_dec.items() if k.startswith("loop"))
+    if moved or not loop_moved:
+        raise AssertionError(f"stage 2 moved {moved[:5]}; loop head tensors "
+                             f"moved: {loop_moved}")
+
+    # -- the trained weights through pipeline/infer
+    seq = os.path.join(tmp, "train_infer")
+    os.makedirs(seq)
+    for i in range(TRAIN_INFER_FRAMES):
+        shutil.copy(os.path.join(agent_dir, f"{i}.npz"), seq)
+    args_i = config_from_dict(CONFIG, multi_thread=False)
+    engine = InferenceEngine(args_i, final_enc, final_dec, device=device,
+                             preprocess_cfg=infer.device_preprocess_config(
+                                 args_i))
+    kernels.reset_launches()
+    _, log_i, _ = run_slam(infer, args_i, engine, seq,
+                           os.path.join(tmp, "train_infer_out"))
+    launches_of(kernels, entries, "train_infer", launched)
+    codes = [c for c, _ in log_i]
+    if len(codes) != TRAIN_INFER_FRAMES:
+        raise AssertionError(f"infer ran {len(codes)} frames")
+    rows = np.loadtxt(os.path.join(tmp, "train_infer_out",
+                                   "trajectory.allframes.txt"), ndmin=2)
+    if not np.isfinite(rows).all():
+        raise AssertionError("infer with the trained weights: non-finite")
+
+    # -- stage 1 with and without remat, the same batches, in process
+    enc_sd, dec_sd = load_msgpack_weights(WEIGHTS)
+    remat = {}
+    for on in (False, True):
+        args = config_from_yaml(cfg_path)
+        args.tpu.remat = on
+        args.infer_tgt = os.path.join(tmp, f"remat_{on}")
+        rng = np.random.default_rng(0)
+        ds = SlamDatasets(args, data_transforms=training_transforms(args,
+                                                                    rng),
+                          rng=rng)
+        trainer = Trainer(args, ds, enc_sd, dec_sd, rng=rng, device=device)
+        batches = trainer._iter_batches()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        secs, losses = [], []
+        for _ in range(REMAT_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(batch)["loss"])
+            secs.append(time.perf_counter() - t0)
+        counts = {(k.name, sh): c for k in kernels.ALL
+                  for sh, c in k.shapes.items()}
+        launches_of(kernels, entries, f"train_remat_{'on' if on else 'off'}",
+                    launched)
+        remat["on" if on else "off"] = dict(
+            step_s_median=float(np.median(secs[1:])), losses=losses,
+            peak_bytes=(torch.cuda.max_memory_allocated()
+                        if device == "cuda" else None),
+            launches_per_step=per_step(counts, REMAT_STEPS))
+        trainer.close()
+        del trainer
+    if not np.allclose(remat["on"]["losses"], remat["off"]["losses"],
+                       rtol=1e-4):
+        raise AssertionError(f"remat changed the loss: {remat}")
+
+    # -- one stage-1 batch of two frames, GPU against CPU
+    args = config_from_yaml(cfg_path)
+    args.train.registration.fill = False           # one map group
+    rng = np.random.default_rng(1)
+    ds = SlamDatasets(args, data_transforms=training_transforms(args, rng),
+                      rng=rng)
+    ds.forced_S = 2
+    frames, info = ds[0]
+    batch = build_registration_batch(frames, info, args.train.registration,
+                                     N_PAD, rng)
+    grads, loss = {}, {}
+    kernels.reset_launches()
+    for dev in (device, "cpu"):
+        enc, dec = Encoder.from_config(args), Decoder.from_config(args)
+        enc.load_state_dict(enc_sd)
+        dec.load_state_dict(dec_sd)
+        enc.to(dev)
+        dec.to(dev)
+        m = registration_metrics(enc, dec, LossConfig.from_args(args),
+                                 to_device(batch, dev), max_pairs=1024)
+        m["loss"].backward()
+        loss[dev] = float(m["loss"].detach())
+        grads[dev] = {f"{part}.{k}": p.grad.detach().cpu()
+                      for part, mod in (("encoder", enc), ("decoder", dec))
+                      for k, p in mod.named_parameters()
+                      if p.grad is not None}
+        if dev != "cpu":
+            launches_of(kernels, entries, "train_gpu_vs_cpu", launched)
+    worst = max(((float(torch.linalg.vector_norm(grads[device][k] - g)
+                        / torch.linalg.vector_norm(g)), k)
+                 for k, g in grads["cpu"].items()
+                 if float(torch.linalg.vector_norm(g)) > 0))
+    loss_relerr = abs(loss[device] - loss["cpu"]) / abs(loss["cpu"])
+    if loss_relerr > 1e-4 or worst[0] > 1e-3 or \
+            set(grads[device]) != set(grads["cpu"]):
+        raise AssertionError(f"train step GPU vs CPU: loss relerr "
+                             f"{loss_relerr}, worst gradient {worst}")
+    return dict(
+        phase="train", card=smi, config="scripts/train_full_size.py "
+        "full_train_args, DeepPointMap-B, K_0 3, one epoch a stage",
+        frames=TRAIN_SCENE["frames"], cli_exit=proc.returncode,
+        cli_wall_s=cli_s, stage1=stages[1], stage2=stages[2],
+        stage2_frozen_unchanged=True, loop_head_tensors_moved=loop_moved,
+        infer=dict(frames=len(codes), codes={c: codes.count(c)
+                                             for c in sorted(set(codes))}),
+        remat=remat, gpu_vs_cpu=dict(
+            frames=2, loss_gpu=loss[device], loss_cpu=loss["cpu"],
+            loss_relerr=loss_relerr, worst_grad_relerr=worst[0],
+            worst_grad_tensor=worst[1], tensors=len(grads["cpu"])),
+        seconds=time.perf_counter() - t_phase)
+
+
 def main(out_dir: str = "") -> int:
     """Run every phase; with `out_dir`, also write the kernel entries
     there as chip_smoke.json and every emitted line to chip_smoke.log."""
@@ -1225,6 +1537,18 @@ def main(out_dir: str = "") -> int:
         entries.append(check_fps(
             torch, sampling, torch.randn(WARMUP_BATCH, n, 3, device=dev) * 0.3,
             torch.ones(WARMUP_BATCH, n, dtype=torch.bool, device=dev), k))
+    # training encodes 2 or 3 frames at once too (B = 4 is checked above)
+    for b in TRAIN_BATCHES:
+        if b == WARMUP_BATCH:
+            continue
+        xb = torch.from_numpy(pts[:b] / 60.0).float().to(dev)
+        entries.append(check_fps(torch, sampling, xb,
+                                 torch.from_numpy(valid[:b]).to(dev),
+                                 npoint[0]))
+        for n, k in list(zip(n_in, npoint))[1:]:
+            entries.append(check_fps(
+                torch, sampling, torch.randn(b, n, 3, device=dev) * 0.3,
+                torch.ones(b, n, dtype=torch.bool, device=dev), k))
     odd = {name: check_fps(torch, sampling, xs, vs, k)["ms"]
            for name, xs, vs, k in odd_fps_cases(torch, dev)}
     emit(dict(phase="k1", card=smi, odd_cases_ms=odd, shapes=[
@@ -1248,8 +1572,12 @@ def main(out_dir: str = "") -> int:
     for i in range(e.upsample_layers):
         knn_shapes.append((npoint[n_lv - 1 - i], npoint[n_lv - 2 - i], 3,
                            0.0))
-    # the warm-up's batch of four runs the level graphs and FP at B = 4
+    # the warm-up's batch of four runs the level graphs and FP at B = 4;
+    # training runs the stage-1 grouping, the level graphs and FP at the
+    # frames of a step (TRAIN_BATCHES)
     batched = [(WARMUP_BATCH, *sh) for sh in knn_shapes[4:]]
+    batched += [(b, *sh) for b in TRAIN_BATCHES for sh in knn_shapes[3:]
+                if (b, *sh) not in batched]
     stride = int(args.tpu.infomat_stride)
     knn_shapes.append((N_PAD, -(-N_PAD // stride), 1, 0.0))
     # configs/infer/ma_synthetic.yaml takes the info matrix at stride 1
@@ -1758,6 +2086,9 @@ def main(out_dir: str = "") -> int:
         emit(dict(phase="viewer", card=smi, merged_points=len(merged),
                   shown_points=len(view), html_bytes=os.path.getsize(html),
                   seconds=view_s, launches=launches))
+
+        # ------------------------------------------------------ train
+        emit(train_phase(torch, kernels, entries, launched, smi, tmp))
 
         # ---------------------------------------------- CPU comparison
         cpu = InferenceEngine(args, enc_sd, dec_sd, preprocess_cfg=pre,

@@ -10,11 +10,13 @@ port reads the keys of its slices (`encoder_points`, `reg_buckets`,
 `upload_quant`, `upload_quant_lsb`, `infomat_stride`, `device_preprocess`,
 `sweep_reuse`, `device_cache_mb`, `retain_nonkeyframe_pcd`,
 `robust_register`, `sequence_parallel`, `odometer_pipeline_depth`,
-`staleness_fallback`, `staleness_fallback_frac`, `agent_platform`) and
-ignores the rest (the neighbour grades among them: every query of the port
-is exact but K4's), except `encoder_bf16: true`, which the entry points
-refuse (`refuse_unported`). PyYAML is imported only where a YAML file is
-read.
+`staleness_fallback`, `staleness_fallback_frac`, `agent_platform`, and for
+training `remat`, `data_parallel`) and ignores the rest: the neighbour
+grades (every query of the port is exact but K4's), `bf16` (the port
+trains in float32 with TF32 off) and `checkpointer` (torch.save), except
+`encoder_bf16: true`, which the entry points refuse (`refuse_unported`). PyYAML is imported only where a YAML file is
+read. The training CLI (pipeline/train.py) reads the same YAML trees as
+the JAX package's: configs/train/example.yaml loads as it is.
 """
 
 from __future__ import annotations
@@ -64,15 +66,18 @@ def str_to_bool(s: str) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The arguments of the JAX package's CLI that inference reads (single
-    agent and multi-agent), plus `--device`."""
+    """The arguments of the JAX package's CLI that inference (single agent
+    and multi-agent) and training read, plus `--device`."""
     p = argparse.ArgumentParser(description="DeepPointMap SLAM (PyTorch/CUDA)")
     p.add_argument("--name", default="DeepPointMap", type=str)
     p.add_argument("--version", default="v1.0", type=str)
     p.add_argument("--mode", default="infer", type=str,
                    choices=["train", "infer"])
+    p.add_argument("--checkpoint", "-ckpt", default="", type=str,
+                   help="Training checkpoint file, or a checkpoints "
+                        "directory (its newest)")
     p.add_argument("--weight", "-w", default="", type=str,
-                   help="Model weight file (.msgpack)")
+                   help="Model weight file (.msgpack or .pth)")
     p.add_argument("--yaml_file", "-yaml", default="", type=str,
                    help="YAML config; values here override CLI values")
     p.add_argument("--device", default="cuda", type=str,
@@ -99,6 +104,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--agent_index", default=-1, type=int,
                    help=">=1: run as a single agent worker process "
                         "connecting to the cloud over TCP")
+    # more than one device in training (pipeline/train.py)
+    p.add_argument("--distributed", default=False, action="store_true",
+                   help="join a torch.distributed process group before "
+                        "training (one process per device)")
+    p.add_argument("--coordinator_address", default="", type=str,
+                   help="host:port of rank 0 (empty: torchrun's env)")
+    p.add_argument("--num_processes", default=0, type=int)
+    p.add_argument("--process_id", default=-1, type=int)
     # YAML-only trees
     for tree in ("dataset", "transforms", "encoder", "decoder", "train",
                  "loss", "slam_system"):
@@ -132,6 +145,12 @@ TPU_DEFAULTS = Config(
     # distance (slam/system._update_staleness_mode)
     staleness_fallback=True,
     staleness_fallback_frac=0.9,
+    # training: ranks of the data-parallel group ("auto" = the process
+    # group's world size, 1 without one)
+    data_parallel="auto",
+    # training: recompute the encoder's activations in the backward pass
+    # (torch.utils.checkpoint) instead of keeping them
+    remat=False,
 )
 
 

@@ -1,20 +1,42 @@
-"""The per-sequence inference dataset (port of `BasicAgent` from
-deeppointmap_tpu/data/dataset.py; reference: dataloader/body.py:317-360).
+"""Dataset hierarchy: BasicDataset -> BasicScene -> BasicAgent, and the
+training sampler SlamDatasets (port of deeppointmap_tpu/data/dataset.py;
+reference: dataloader/body.py:36-397).
 
-One directory of scans in one format, sorted by their numeric file names,
-with the reference's split_num/split_index multi-agent slicing (5% overlap).
-Iteration is plain Python; the inference pipeline overlaps reading with
-device compute through its own prefetch threads. The scene / dataset
-hierarchy and the training sampler of the JAX package are not ported yet.
+  * BasicAgent is one directory of scans in one format, sorted by their
+    numeric file names: the inference per-sequence dataset (with the
+    reference's split_num/split_index multi-agent slicing, 5% overlap) and
+    the training leaf.
+  * SlamDatasets' registration item samples S in [2, K] nearby frames x
+    num_map map groups (body.py:97-153); its loop item samples a pair
+    stratified <d / d-2d / >2d (body.py:62-95).
+  * the per-scene pairwise frame-distance matrix is cached as
+    frame_dis.npy (body.py:363-396), kept in memory when the scene
+    directory is read-only, and stored as float16.
+
+Every random draw comes from the one np.random.Generator the caller
+passes, in the JAX package's order, so that both packages build the same
+items from the same seed. Iteration is plain Python (no DataLoader).
 """
 
 from __future__ import annotations
 
 import glob as globlib
+import logging
 import os
-from typing import Callable, Optional, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from deeppointmap_tpu_torch.data.readers import get_reader, read_auto
+
+logger = logging.getLogger(__name__)
+
+
+def _length_range(items) -> np.ndarray:
+    out = [0]
+    for it in items:
+        out.append(len(it) + out[-1])
+    return np.asarray(out, np.int64)
 
 
 class BasicAgent:
@@ -22,8 +44,10 @@ class BasicAgent:
     (reference: body.py:317-360)."""
 
     def __init__(self, root: str, reader: Union[Callable, str] = "auto",
+                 parent: Optional["BasicScene"] = None,
                  split_num: int = 1, split_index: int = 0):
         self.root = root
+        self.parent = parent
         self.data_transforms: Optional[Callable] = None
 
         files = globlib.glob(os.path.join(root, "*.*"))
@@ -64,3 +88,199 @@ class BasicAgent:
 
     def set_independent(self, data_transforms: Callable) -> None:
         self.data_transforms = data_transforms
+
+
+class BasicScene:
+    """All agents of one scene (reference: body.py:285-314)."""
+
+    def __init__(self, root: str, reader, parent=None, args=None):
+        self.root = root
+        self.parent = parent
+        self.agent_list: List[BasicAgent] = []
+        for name in sorted(os.listdir(root)):
+            agent_root = os.path.join(root, name)
+            if os.path.isdir(agent_root):
+                self.agent_list.append(
+                    BasicAgent(agent_root, reader, parent=self))
+        self.pcd_range = _length_range(self.agent_list)
+
+    def __getitem__(self, item: int):
+        aid = int(np.sum(self.pcd_range <= item) - 1)
+        return self.agent_list[aid][item - self.pcd_range[aid]]
+
+    def __len__(self) -> int:
+        return int(self.pcd_range[-1])
+
+
+class BasicDataset:
+    """All scenes of one dataset (reference: body.py:229-282)."""
+
+    def __init__(self, root: str, reader, scenes: Sequence[str], name: str,
+                 args=None):
+        self.root = root
+        self.name = name
+        if not os.path.isdir(root):
+            raise NotADirectoryError(f"{root!r} is not a directory")
+        self.scene_list: List[BasicScene] = []
+        for scene_name in scenes:
+            scene_root = os.path.join(root, str(scene_name))
+            if not os.path.isdir(scene_root):
+                raise NotADirectoryError(f"{scene_root!r} is not a directory")
+            self.scene_list.append(BasicScene(scene_root, reader, parent=self,
+                                              args=args))
+        self.pcd_range = _length_range(self.scene_list)
+
+    def __getitem__(self, item: int):
+        sid = int(np.sum(self.pcd_range <= item) - 1)
+        return self.scene_list[sid][item - self.pcd_range[sid]]
+
+    def __len__(self) -> int:
+        return int(self.pcd_range[-1])
+
+    def get_frame_order(self, item: int) -> Tuple[int, int]:
+        sid = int(np.sum(self.pcd_range <= item) - 1)
+        return sid, int(item - self.pcd_range[sid])
+
+
+def get_frame_dis(dataset_list: List[BasicDataset]) -> List[List[np.ndarray]]:
+    """Pairwise GT translation distances per scene, float16, cached as
+    frame_dis.npy in the scene directory (reference: body.py:363-396);
+    kept in memory when that directory is not writable."""
+    out = []
+    for dataset in dataset_list:
+        per_scene = []
+        for scene in dataset.scene_list:
+            files: List[str] = []
+            for agent in scene.agent_list:
+                files += agent.file_list
+            cache = os.path.join(scene.root, "frame_dis.npy")
+            dis = None
+            if os.path.exists(cache):
+                arr = np.load(cache).astype(np.float32)
+                if arr.shape[0] == arr.shape[1] == len(files):
+                    dis = arr
+            if dis is None:
+                poses = np.stack([read_auto(f).translation.reshape(3)
+                                  for f in files], 0)
+                dis = np.linalg.norm(poses[:, None] - poses[None, :],
+                                     axis=-1).astype(np.float32)
+                try:
+                    np.save(cache, dis)
+                except OSError:
+                    logger.warning("scene dir read-only; frame_dis kept "
+                                   "in memory for %s", scene.root)
+            per_scene.append(dis.astype(np.float16))
+        out.append(per_scene)
+    return out
+
+
+class SlamDatasets:
+    """Training sampler over the dataset hierarchy
+    (reference: body.py:36-226)."""
+
+    def __init__(self, args, data_transforms: Optional[Callable] = None,
+                 rng: Optional[np.random.Generator] = None):
+        self.args = args
+        self.dataset_cfg = args.dataset
+        self.registration_cfg = args.train.registration
+        self.loop_detection_cfg = args.train.loop_detection
+        self.data_transforms = data_transforms or (lambda x: x)
+        self.rng = rng or np.random.default_rng()
+
+        self.dataset_list = self._load_datasets()
+        self.pcd_range = _length_range(self.dataset_list)
+        self.frame_distance = get_frame_dis(self.dataset_list)
+        self._getitem_method = self._getitem_registration
+        #: when set, registration items use this S instead of drawing it:
+        #: the trainer fixes one S per global batch, so that every rank's
+        #: slice has the same shape
+        self.forced_S: Optional[int] = None
+
+    def _load_datasets(self) -> List[BasicDataset]:
+        out = []
+        for cfg in self.dataset_cfg:
+            reader = get_reader(cfg.reader["type"])
+            out.append(BasicDataset(root=cfg.root, reader=reader,
+                                    scenes=cfg.scenes, name=cfg.name.lower(),
+                                    args=self.args))
+        return out
+
+    def __len__(self) -> int:
+        return int(self.pcd_range[-1])
+
+    def __getitem__(self, item: int):
+        return self._getitem_method(item)
+
+    def registration(self) -> None:
+        self._getitem_method = self._getitem_registration
+
+    def loop_detection(self) -> None:
+        self._getitem_method = self._getitem_loop_detection
+
+    def sample_S(self) -> int:
+        """Draw the map size S in [2, K], biased toward pairs
+        (reference: body.py:98-102)."""
+        S = int(self.rng.integers(2, self.registration_cfg.K + 1))
+        if self.rng.random() < 0.34:
+            S = 2
+        return S
+
+    def _locate(self, index: int):
+        did = int(np.sum(self.pcd_range <= index) - 1)
+        offset = int(index - self.pcd_range[did])
+        ds = self.dataset_list[did]
+        sid, foff = ds.get_frame_order(offset)
+        return did, offset, ds, sid, foff
+
+    def _getitem_registration(self, index: int):
+        """S nearby frames x num_map groups (reference: body.py:97-115)."""
+        cfg = self.registration_cfg
+        S = int(self.forced_S) if self.forced_S is not None else \
+            self.sample_S()
+        num_map = (cfg.K_max // S) if cfg.fill else 1
+        info = dict(dsf_index=[], refined_SE3_file=[], num_map=num_map)
+        frames = []
+        for i in range(num_map):
+            idx = index if i == 0 else int(self.rng.integers(0, len(self)))
+            frames += self._map_query(idx, K=S, info=info)
+        return frames, info
+
+    def _map_query(self, index: int, K: int, info: dict) -> List:
+        """K frames within cfg.distance of the anchor
+        (reference: body.py:117-153)."""
+        did, offset, ds, sid, foff = self._locate(index)
+        frame_dis = self.frame_distance[did][sid][foff].astype(np.float32)
+
+        dis_mask = frame_dis <= self.registration_cfg.distance - 0.25
+        cand = (np.nonzero(dis_mask)[0] - foff).tolist()
+        cand.remove(0)
+        if len(dis_mask.nonzero()[0]) <= K:
+            if not cand:
+                cand = [0]
+            cand = cand * (K // len(cand) + 1)
+        offs = list(self.rng.choice(len(cand), size=K - 1, replace=False))
+        map_offsets = [0] + [cand[i] for i in offs]
+        info["dsf_index"] += [(did, sid, foff + o) for o in map_offsets]
+        scene_root = ds.scene_list[sid].root
+        info["refined_SE3_file"].append(
+            "" if "carla" in ds.name else
+            os.path.join(scene_root, "refined_SE3.pkl"))
+        return [self.data_transforms(ds[offset + o]) for o in map_offsets]
+
+    def _getitem_loop_detection(self, index: int):
+        """A pair stratified <d / d-2d / >2d (reference: body.py:62-95)."""
+        did, offset, ds, sid, foff = self._locate(index)
+        frame1 = ds[offset]
+        frame_dis = self.frame_distance[did][sid][foff].astype(np.float32)
+        s = self.rng.random()
+        d = self.loop_detection_cfg.distance
+        if s < 0.5:
+            mask = frame_dis <= d
+        elif s < 0.75:
+            mask = (frame_dis > d) & (frame_dis <= 2 * d)
+        else:
+            mask = frame_dis > 2 * d
+        cand = np.nonzero(mask)[0] - foff
+        pair = int(self.rng.choice(cand)) if cand.size else 0
+        frame2 = ds[offset + pair]
+        return (self.data_transforms(frame1), self.data_transforms(frame2))

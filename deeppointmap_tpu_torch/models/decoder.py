@@ -4,8 +4,8 @@ the weighted Kabsch solve (port of deeppointmap_tpu/models/decoder.py).
 Descriptors are channel-last (tokens, in_channel + 3) with xyz in the last
 3 channels. Submodules carry the Flax scope names (models/weights.py).
 `tpu.robust_register` replaces the trimmed Kabsch solve with the RANSAC
-one (ops/kabsch.ransac_kabsch). The training entry point is not ported
-yet.
+one (ops/kabsch.ransac_kabsch). `train_forward` is the training entry
+point (models/loss.py consumes its dict).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from deeppointmap_tpu_torch.models.common import (LN_EPS, MultiHeadAttention,
                                                   sine_pos_embedding)
 from deeppointmap_tpu_torch.ops.kabsch import (ransac_kabsch, top_k,
                                                weighted_kabsch)
+from deeppointmap_tpu_torch.ops.neighbors import group_points
 
 _CONF_TOPK = 30  # confidence = mean of the first 30 inlier confidences
                  # (reference: system/modules/utils.py:18)
@@ -101,7 +102,8 @@ class HeadMLP(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Matcher decoder: `correlate`, `registration` and `loop_detection`."""
+    """Matcher decoder: `correlate`, `registration`, `loop_detection` and
+    `train_forward`."""
 
     def __init__(self, in_channel: int = 128, model_channel: int = 256,
                  attention_layers: int = 3, tau: float = 0.1,
@@ -201,6 +203,63 @@ class Decoder(nn.Module):
         (reference: decoder.py:129-143)."""
         return self.loop_head(*self.correlate(src_desc, dst_desc, src_valid,
                                               dst_valid))
+
+    def train_forward(self, src_desc, dst_desc, src_valid, dst_valid,
+                      gt_R, gt_t, max_pairs: int):
+        """Training features and offset residuals (reference:
+        decoder.py:40-89), fixed-shape: (B, M, C+3) x (B, N, C+3), GT
+        src -> dst pose gt_R (B, 3, 3), gt_t (B, 3) -> dict of the pairing
+        and coarse features, the offset residuals of `max_pairs` pairs per
+        batch element and their validity.
+
+        The pairs are those of `first_pairs` over the proximity mask."""
+        src_coarse = self.coarse_pairing_head(src_desc[..., :-3])
+        dst_coarse = self.coarse_pairing_head(dst_desc[..., :-3])
+        src_fea, dst_fea = self.correlate(src_desc, dst_desc, src_valid,
+                                          dst_valid)
+        src_xyz, dst_xyz = src_desc[..., -3:], dst_desc[..., -3:]
+        src_pair_fea = self.similarity_head(src_fea)
+        dst_pair_fea = self.similarity_head(dst_fea)
+
+        # GT-aligned proximity pairs (reference: decoder.py:62-76)
+        src_gt = torch.einsum("bij,bnj->bni", gt_R, src_xyz) \
+            + gt_t[:, None, :]
+        d2 = ((src_gt[:, :, None, :] - dst_xyz[:, None, :, :]) ** 2).sum(-1)
+        near = (d2 <= float(self.eps_offset ** 2)) \
+            & src_valid[:, :, None] & dst_valid[:, None, :]
+        n = near.shape[2]
+        flat, pair_valid = first_pairs(near, max_pairs)
+        si, di = flat // n, flat % n
+
+        sf, df = group_points(src_fea, si), group_points(dst_fea, di)
+        s_gt, d_gt = group_points(src_gt, si), group_points(dst_xyz, di)
+        off_s2d = self.offset_head(torch.cat([sf, df], dim=-1))
+        off_d2s = self.offset_head(torch.cat([df, sf], dim=-1))
+        # GT offsets (reference: decoder.py:78-81): the src offset lives in
+        # the src frame, so the gap is rotated back by gt_R^T
+        gap = d_gt - s_gt
+        src_off_gt = torch.einsum("bji,bpj->bpi", gt_R, gap)
+        dst_off_gt = -gap
+        return {
+            "src_pairing_fea": src_pair_fea, "dst_pairing_fea": dst_pair_fea,
+            "src_coarse_fea": src_coarse, "dst_coarse_fea": dst_coarse,
+            "src_offset_res": off_s2d - src_off_gt,
+            "dst_offset_res": off_d2s - dst_off_gt,
+            "pair_valid": pair_valid,
+        }
+
+
+def first_pairs(near: torch.Tensor, k: int):
+    """jax.lax.top_k(near.reshape(B, M * N).astype(f32), k) as the JAX
+    decoder's train_forward takes it: the first k True entries of each
+    (M, N) mask in flat (m * N + n) order, then the first False ones.
+    torch.topk makes no promise about ties; a stable descending sort keeps
+    equal entries in index order. -> (flat index (B, k) int64, whether the
+    entry is True (B, k))."""
+    b = near.shape[0]
+    vals, flat = torch.sort(near.reshape(b, -1).float(), dim=-1,
+                            descending=True, stable=True)
+    return flat[:, :k], vals[:, :k] > 0.5
 
 
 def num_pairs_for(m: int, n: int, num_sample: float = 0.5) -> int:

@@ -1,17 +1,22 @@
-"""Weights: a reader for Flax `.msgpack` checkpoints and the map from a
-Flax parameter tree to the port's state dicts (the port's counterpart of
-deeppointmap_tpu/models/weights.py and pipeline/common.load_weights).
+"""Weights: a reader and a writer of Flax `.msgpack` checkpoints and the
+maps between a Flax parameter tree and the port's state dicts (the port's
+counterpart of deeppointmap_tpu/models/weights.py and of
+pipeline/common.load_weights / save_weights).
 
 `read_flax_msgpack` decodes the subset of MessagePack that
 `flax.serialization.msgpack_serialize` writes -- maps, arrays, strings,
 binaries, numbers, nil, booleans, and extension type 1 (an ndarray packed
 as (shape, dtype name, C-order bytes)) and 3 (a NumPy scalar, packed the
 same way) -- so that neither `msgpack` nor `flax` is needed.
+`write_flax_msgpack` is its inverse for the trees the trainer saves: maps
+with sorted string keys and ndarray leaves under extension type 1, each
+item in its smallest MessagePack form, as `msgpack_serialize` writes them.
 
 The port's submodules carry the Flax scope names, so the map is
 mechanical: `a/b/kernel` -> `a.b.weight` transposed (Dense (in, out) ->
 Linear (out, in)), `scale` -> `weight` (LayerNorm), `in_proj_kernel`
-(C, 3C) -> `in_proj_weight` (3C, C).
+(C, 3C) -> `in_proj_weight` (3C, C); `flax_tree_from_state_dict` maps
+back.
 
 `load_torch_weight` reads the reference's `.pth` schema ({'encoder':
 state_dict, 'decoder': state_dict} of its torch modules, reference:
@@ -116,6 +121,82 @@ def read_flax_msgpack(path: str) -> dict:
     return out
 
 
+class _Writer:
+    """MessagePack encoding of nested maps with str keys and ndarray
+    leaves, each item in its smallest form (msgpack-python's choice)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def head(self, n: int, fix: int, fix_max: int, wide) -> None:
+        """A length header: the fix form below `fix_max`, else the first
+        of the (limit, type byte, struct format) forms that holds `n`."""
+        if n < fix_max:
+            self.parts.append(bytes([fix | n]))
+            return
+        for limit, byte, fmt in wide:
+            if n < limit:
+                self.parts.append(bytes([byte]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack item too long: {n}")
+
+    def value(self, v) -> None:
+        if isinstance(v, Mapping):
+            self.head(len(v), 0x80, 16, ((1 << 16, 0xDE, ">H"),
+                                         (1 << 32, 0xDF, ">I")))
+            for k in sorted(v):
+                self.value(str(k))
+                self.value(v[k])
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self.head(len(b), 0xA0, 32, ((1 << 8, 0xD9, ">B"),
+                                         (1 << 16, 0xDA, ">H"),
+                                         (1 << 32, 0xDB, ">I")))
+            self.parts.append(b)
+        elif isinstance(v, bytes):
+            self.head(len(v), 0, 0, ((1 << 8, 0xC4, ">B"),
+                                     (1 << 16, 0xC5, ">H"),
+                                     (1 << 32, 0xC6, ">I")))
+            self.parts.append(v)
+        elif isinstance(v, (tuple, list)):
+            self.head(len(v), 0x90, 16, ((1 << 16, 0xDC, ">H"),
+                                         (1 << 32, 0xDD, ">I")))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, int) and 0 <= v < 1 << 32:
+            self.head(v, 0, 128, ((1 << 8, 0xCC, ">B"),
+                                  (1 << 16, 0xCD, ">H"),
+                                  (1 << 32, 0xCE, ">I")))
+        elif isinstance(v, np.ndarray):
+            self.ext(1, v)
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} as msgpack")
+
+    def ext(self, code: int, arr: np.ndarray) -> None:
+        """An ndarray as extension `code`: (shape, dtype name, C bytes)."""
+        inner = _Writer()
+        inner.value((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+        payload = b"".join(inner.parts)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.parts.append(bytes([fixext[n]]))
+        else:
+            self.head(n, 0, 0, ((1 << 8, 0xC7, ">B"), (1 << 16, 0xC8, ">H"),
+                                (1 << 32, 0xC9, ">I")))
+        self.parts.append(struct.pack(">b", code) + payload)
+
+
+def write_flax_msgpack(path: str, tree: Mapping) -> None:
+    """A nested dict of ndarrays -> a `.msgpack` file that
+    `flax.serialization.msgpack_restore` (and `read_flax_msgpack`) read
+    back as the same tree."""
+    w = _Writer()
+    w.value(tree)
+    with open(path, "wb") as f:
+        f.write(b"".join(w.parts))
+
+
 def _flat(tree: Mapping, prefix: str = ""):
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
@@ -141,6 +222,23 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         sd[".".join(scope + [leaf])] = torch.from_numpy(
             np.array(arr, dtype=np.float32))
     return sd
+
+
+def flax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `state_dict_from_flax`: a port module's state dict
+    -> its Flax parameter tree (no 'params' root). 2-D `weight` ->
+    `kernel` transposed, `in_proj_weight` -> `in_proj_kernel` transposed,
+    1-D `weight` (LayerNorm) -> `scale`."""
+    tree: dict = {}
+    for name, t in sd.items():
+        *scope, leaf = name.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "in_proj_weight":
+            arr, leaf = arr.T, "in_proj_kernel"
+        elif leaf == "weight":
+            arr, leaf = (arr.T, "kernel") if arr.ndim == 2 else (arr, "scale")
+        _set(tree, "/".join(scope + [leaf]), np.ascontiguousarray(arr))
+    return tree
 
 
 def state_dicts_from_jax(enc_tree: Mapping, dec_tree: Mapping):

@@ -1,4 +1,4 @@
-"""Shared pipeline helpers: model construction and weight loading (port of
+"""Shared pipeline helpers: model construction and weight IO (port of
 deeppointmap_tpu/pipeline/common.py)."""
 
 from __future__ import annotations
@@ -9,8 +9,10 @@ import torch
 
 from deeppointmap_tpu_torch.models.decoder import Decoder
 from deeppointmap_tpu_torch.models.encoder import Encoder
-from deeppointmap_tpu_torch.models.weights import (load_msgpack_weights,
-                                                   load_torch_weight)
+from deeppointmap_tpu_torch.models.weights import (flax_tree_from_state_dict,
+                                                   load_msgpack_weights,
+                                                   load_torch_weight,
+                                                   write_flax_msgpack)
 
 logger = logging.getLogger(__name__)
 
@@ -43,6 +45,14 @@ def load_weights(args, weight_path: str):
     if weight_path.endswith((".pth", ".pt", ".ckpt")):
         return load_torch_weight(weight_path, args)
     raise ValueError(f"unsupported weight format: {weight_path}")
+
+
+def save_weights(path: str, enc_sd, dec_sd) -> None:
+    """(encoder state dict, decoder state dict) -> a `.msgpack` file in the
+    JAX package's schema, {'encoder': tree, 'decoder': tree}, which both
+    packages' load_weights read."""
+    write_flax_msgpack(path, {"encoder": flax_tree_from_state_dict(enc_sd),
+                              "decoder": flax_tree_from_state_dict(dec_sd)})
 
 
 def build_models(args, weight: str = "", seed: int = 0):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's step goes, on one CUDA device.
 
-    python3 scripts/profile_torch_step.py [--path engine|slam] [--steps 5]
-                                          [--warm 24] [--out DIR]
+    python3 scripts/profile_torch_step.py [--path engine|slam|train]
+                                          [--steps 5] [--warm 24] [--out DIR]
 
 `--path engine` builds the engine of chip_smoke.py (DeepPointMap-B, device
 preprocessing, int16 upload, info matrix at stride 4) on the same synthetic
@@ -10,7 +10,12 @@ scans and times `--steps` odometry steps after a warm-up. `--path slam`
 times `SlamSystem.step` as chip_smoke.py's slam_a runs it (scans read from
 KITTI .bin files, tpu.sweep_reuse and USE_FUSED_SWEEP, the same edge gates)
 after `--warm` steps that build up a map; the scans are read and voxelized
-before the clock starts.
+before the clock starts. `--path train` times stage-1 training steps of
+chip_smoke.py's train phase (its scene, its full_train_args copy, warm-started
+from the trained weights) on batches built before the clock starts, after
+two warm-up steps; the step code is the step's frame count (B*S). A third
+pass builds each batch on the host right before its step, as the CLI does,
+and reports the host's and the step's ms apart.
 
 The same frames run twice from the same start (the slam path builds a fresh
 SlamSystem and empties the engine's cache; the step codes of the two passes
@@ -27,7 +32,8 @@ step with scan-to-map registration and the loop check), wall ms, traced wall
 ms, device ms and launches; the means over all steps and per step code; the
 kernel time of K1 (fps), K2 (knn), K3 (moments) and K4 (sweep) a step; and
 the kernels with the most device time. With --out, writes the same to
-DIR/profile_step.json (profile_slam.json for the slam path).
+DIR/profile_step.json (profile_slam.json, profile_train.json for the other
+paths).
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -59,7 +67,8 @@ def main() -> int:
     from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("engine", "slam"), default="engine")
+    ap.add_argument("--path", choices=("engine", "slam", "train"),
+                    default="engine")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warm", type=int, default=24,
                     help="slam path: steps before the timed ones")
@@ -91,6 +100,36 @@ def main() -> int:
                                            pts[i - 1], prev[2][0])
                 prev = out[:3]
                 return "step"
+            return step
+    elif opts.path == "train":
+        from deeppointmap_tpu_torch.data.dataset import SlamDatasets
+        from deeppointmap_tpu_torch.pipeline.train import training_transforms
+        from deeppointmap_tpu_torch.pipeline.trainer import Trainer
+
+        tmp = tempfile.TemporaryDirectory()
+        cs.render_train_scene(syn, tmp.name + "/world")
+        args = config_from_dict(cs.train_config(tmp.name + "/world",
+                                                tmp.name + "/log"))
+        enc_sd, dec_sd = load_msgpack_weights(cs.WEIGHTS)
+
+        def trainer():
+            rng = np.random.default_rng(0)
+            return Trainer(args, SlamDatasets(
+                args, data_transforms=training_transforms(args, rng),
+                rng=rng), enc_sd, dec_sd, rng=rng, device="cuda")
+
+        it = trainer()._iter_batches()
+        batches = [next(it) for _ in range(2 + steps)]
+        warm = [0, 1]
+        order = list(range(2, 2 + steps))
+
+        def start():
+            tr = trainer()
+
+            def step(i):
+                tr.train_step(batches[i])
+                return str(batches[i].points.shape[0]
+                           * batches[i].points.shape[1])
             return step
     else:
         from deeppointmap_tpu_torch.data.dataset import BasicAgent
@@ -155,6 +194,20 @@ def main() -> int:
     if traced_codes != codes:
         raise AssertionError(f"the two passes took different decisions: "
                              f"{codes} {traced_codes}")
+    if opts.path == "train":
+        # pass 3, as the CLI runs: the host builds each batch right before
+        # its step (host ms beside the step's wall ms, no profiler)
+        tr = trainer()
+        it = tr._iter_batches()
+        batch_ms, step_ms = [], []
+        for j in range(2 + steps):
+            t0 = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            tr.train_step(batch)
+            if j >= 2:
+                batch_ms.append((t1 - t0) * 1e3)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
 
     mean = lambda xs: sum(xs) / len(xs)
     by_code = {}
@@ -185,10 +238,14 @@ def main() -> int:
                kernels_per_step=mean(launches),
                top=[dict(name=n[:90], ms_per_step=v[0] / steps,
                          calls_per_step=v[1] / steps) for n, v in top])
+    if opts.path == "train":
+        out["batches_built_between_steps"] = dict(
+            batch_ms=batch_ms, step_ms=step_ms,
+            step_ms_per_step=mean(step_ms))
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
-        name = "profile_step.json" if opts.path == "engine" \
-            else "profile_slam.json"
+        name = {"engine": "profile_step.json", "slam": "profile_slam.json",
+                "train": "profile_train.json"}[opts.path]
         with open(os.path.join(opts.out, name), "w") as f:
             json.dump(out, f, indent=1)
     print(json.dumps(out))

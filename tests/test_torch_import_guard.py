@@ -1,6 +1,7 @@
 """The port stands alone: no module of deeppointmap_tpu_torch imports JAX,
-Flax or the JAX package (deeppointmap_tpu), at run time or in its source;
-neither do the scripts that drive it on the card."""
+Flax, optax, orbax or the JAX package (deeppointmap_tpu), at run time or in
+its source; neither do the scripts that drive it on the card, nor the
+worker of its data-parallel test."""
 
 import ast
 import os
@@ -14,15 +15,17 @@ PORT = Path(__file__).resolve().parent.parent / "deeppointmap_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py"))
 ROOT = PORT.parent
 #: the scripts that run on a machine without JAX
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py",
+           ROOT / "scripts" / "train_ddp_check.py",
+           ROOT / "tests" / "test_torch_ddp_worker.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeppointmap_tpu")
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
         ".__init__") for p in SOURCES)
 
 
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "deeppointmap_tpu"
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_modules_found():
@@ -33,9 +36,13 @@ def test_modules_found():
                  "ops.sweep", "ops.normals", "kernels", "config",
                  "data.transforms", "utils.timer", "utils.evaluation",
                  "utils.visualization", "slam.serialization",
-                 "slam.transport", "pipeline.infer_multiagents"):
+                 "slam.transport", "pipeline.infer_multiagents",
+                 "models.loss", "data.refined_se3", "parallel",
+                 "parallel.ddp", "parallel.train_step", "pipeline.batching",
+                 "pipeline.train_utils", "pipeline.trainer",
+                 "pipeline.train"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 41
+    assert len(MODULES) >= 50
 
 
 def test_importing_every_module_loads_no_jax():
@@ -45,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax') or m.split('.')[0] == 'deeppointmap_tpu')\n"
+        f"{FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
@@ -87,4 +94,5 @@ def test_importing_the_cli_needs_no_yaml():
 
 def test_guard_tells_the_prefix_apart():
     assert _forbidden("deeppointmap_tpu.ops") and _forbidden("jax.numpy")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert not _forbidden("deeppointmap_tpu_torch.ops")
