@@ -37,11 +37,24 @@ Phases, in order, each printing one JSON line:
           configs/infer/sample.yaml, trained weights from
           artifacts/full_size_occ_v2) on synthetic scans: extract, odometry
           frame to frame, register_with_info, loop_scores.
+  sharded parallel/sharded_extract.extract_sequence (device preprocessing,
+          the encoder, the descriptor concat) on 10 scans over one replica
+          on cuda:0 and over two (the split and the tail padding on one
+          card), at 1 and 4 scans a replica: held to engine.extract with
+          upload_quant none (descriptors atol 2e-5, validity identical);
+          then the replicas' build seconds, the host syncs of the built
+          extractor's first call and its scans/s, with K1 / K2 launches by
+          shape.
   slam_a  single-agent SLAM through pipeline.infer.run_sequence ->
           SlamSystem.step on 120 synthetic scans written as KITTI .bin
           files, with tpu.sweep_reuse and USE_FUSED_SWEEP: K4 serves the
           filters and the encoder's first stage (no K2 launch there). Engine
           entry points the run did not reach are then driven directly.
+  native  the host voxel downsample (0.3 m, 'first') through the native
+          library (deeppointmap_tpu_torch/native, g++ at first use) and
+          through NumPy on slam_a's first raw scans and on a seeded
+          122 880-point scan of the same world: identical indices, ms for
+          each; slam_a must have taken the native route on every frame.
   slam_b  16 frames, same entry point, sweep reuse off, USE_FUSED_MOMENTS:
           K3 beside K2 without moments; the share of normals that match a
           float64 PCA, from K2's moments and from K3's.
@@ -105,6 +118,17 @@ Phases, in order, each printing one JSON line:
           launches a step), and one stage-1 batch of two frames on the GPU
           against the CPU from the same weights: loss relerr <= 1e-4, every
           gradient ||d|| / ||g|| <= 1e-3 (the worst printed).
+  bf16    `tpu.encoder_bf16` on the card: main's frames through an engine
+          with the option off and on (ms a frame for each, the features'
+          relative error; coordinates and validity must be identical),
+          frame 0 through the CPU engine with the encoder's gate forced to
+          bfloat16 (`bf16_vs_cpu`: validity identical, mean abs difference
+          <= BF16_CPU_RATIO of the bf16-vs-f32 one), the accuracy world
+          with loops on under bfloat16 (the path's launches are counted
+          here alone; aligned ATE beside the float32 run's, not gated),
+          and one stage-1 training step
+          (train's config, the trained weights) with the option off and
+          on: each loss must be finite.
   cpu     frames 0-2 of `main` again through the same engine on the CPU (the
           plain versions), and frames 0-2 of slam_a through a CPU
           SlamSystem, held to the GPU results.
@@ -146,6 +170,11 @@ SEED = 0
 N_PAD = 16384
 N_FRAMES = 8
 CPU_FRAMES = 3
+#: frames of the bf16 phase held against the CPU encoder forced to bfloat16,
+#: and the bound on their mean absolute difference, as a share of the one
+#: between the card's bfloat16 and float32 features
+BF16_CPU_FRAMES = 1
+BF16_CPU_RATIO = 0.5
 SLAM_A_FRAMES = 120
 SLAM_B_FRAMES = 16
 #: the JAX package's accuracy world: two laps of 96 frames
@@ -162,6 +191,11 @@ SYNC_FRAMES = 16
 #: the pipelined mode's warm-up extracts a batch of this many scans
 #: (engine.extract_chunk)
 WARMUP_BATCH = 4
+#: the sharded phase's scans (two replicas at 4 scans a replica pad a tail)
+SHARDED_SCANS = 10
+#: the native phase: slam_a's first raw scans, and a KITTI-size scan
+NATIVE_FRAMES = 8
+KITTI_POINTS = 122880
 WEIGHTS = "artifacts/full_size_occ_v2/weights_final.msgpack"
 #: the train phase's scene: scripts/train_full_size.py TRAIN_SCENES[0]
 #: (world seed 1, a 20 m circle) under its DEFAULT_WORLD / DEFAULT_RENDER
@@ -178,6 +212,9 @@ REMAT_STEPS = 6
 #: weights
 TRAIN_INFER_FRAMES = 16
 TRAIN_TIMEOUT_S = 420
+#: the train phase's config file in the run's temporary directory (the
+#: bf16 phase steps on it too)
+TRAIN_YAML = "train.yaml"
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -1188,6 +1225,224 @@ def compare_slam_cpu(cpu_log, gpu_log) -> list:
 
 
 # ---------------------------------------------------------------- training
+def sharded_phase(torch, kernels, entries, launched, smi, pts, valid,
+                  enc_sd, dec_sd, pre, device="cuda") -> dict:
+    """extract_sequence over one and two replicas on cuda:0 at 1 and 4
+    scans a replica, each held to engine.extract (float32 uploads, the same
+    device preprocessing): descriptors atol 2e-5, validity identical. Then
+    the seconds make_sharded_extract takes to build the replicas, the
+    operations that synchronise with the GPU in the built extractor's
+    first `sequence` call on the same scans, and scans/s of its second."""
+    from deeppointmap_tpu_torch.config import config_from_dict
+    from deeppointmap_tpu_torch.models.encoder import Encoder
+    from deeppointmap_tpu_torch.parallel.sharded_extract import (
+        extract_sequence, make_sharded_extract)
+    from deeppointmap_tpu_torch.slam.engine import InferenceEngine
+
+    cfg = copy.deepcopy(CONFIG)
+    cfg["tpu"]["upload_quant"] = "none"
+    args = config_from_dict(cfg, multi_thread=False)
+    engine = InferenceEngine(args, enc_sd, dec_sd, preprocess_cfg=pre,
+                             device=device)
+    ref = engine.extract(pts, valid)
+    encoder = Encoder.from_config(args)
+    dev = engine.device
+    runs = {}
+    for replicas in (1, 2):
+        for per in (1, 4):
+            out = extract_sequence(encoder, enc_sd, [dev] * replicas,
+                                   engine.coor_scale, pts, valid,
+                                   preprocess_cfg=pre, batch_per_device=per)
+            name = f"sharded_r{replicas}_b{per}"
+            t0 = time.perf_counter()
+            extract = make_sharded_extract(encoder, enc_sd, [dev] * replicas,
+                                           engine.coor_scale, pre)
+            build_s = time.perf_counter() - t0
+            with (sync_counter(torch) if device == "cuda"
+                  else contextlib.nullcontext(collections.Counter())) as syncs:
+                extract.sequence(pts, valid, per)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            extract.sequence(pts, valid, per)
+            wall = time.perf_counter() - t0
+            launches = launches_of(kernels, entries, name, launched)
+            require(launches, ("fps", "knn"), name)
+            err = float(np.abs(out[0] - ref[0]).max())
+            same = bool(np.array_equal(out[1], ref[1])
+                        and np.array_equal(out[2], ref[2]))
+            if err > 2e-5 or not same or not np.isfinite(out[0]).all():
+                raise AssertionError(f"{name}: descriptors {err} from the "
+                                     f"engine's, validity equal: {same}")
+            runs[name] = dict(
+                replicas=replicas, batch_per_device=per, build_s=build_s,
+                wall_s=wall, scans_per_s=len(pts) / wall,
+                desc_max_abs_err=err,
+                validity_equal=same, host_syncs=sum(syncs.values()),
+                launches_by_shape={
+                    f"{k.name}{list(sh)}": c for k in (kernels.FPS,
+                                                       kernels.KNN)
+                    for sh, c in sorted(k.shapes.items())})
+    return dict(phase="sharded", card=smi, scans=len(pts),
+                reference="engine.extract, upload_quant none", runs=runs)
+
+
+def native_phase(native, voxel, syn, raw_scans, slam_a_calls, smi) -> dict:
+    """The native voxel route against the NumPy one (identical indices, ms
+    of each: median of 5) on slam_a's first raw scans and a KITTI-size
+    scan of the same world; slam_a must have called the native library
+    once a frame."""
+    rng = np.random.default_rng(SEED)
+    world = syn.make_world(rng, **WORLD)
+    pose = syn.circle_trajectory(TRAJ["frames_per_lap"], TRAJ["radius"])[0]
+    kitti = syn.render_scan(world, pose, sensor_range=60.0,
+                            max_points=KITTI_POINTS, rng=rng)
+    clouds = {f"slam_a_{i}": raw_scans[i] for i in range(NATIVE_FRAMES)}
+    clouds["kitti_size"] = kitti
+    rows = {}
+    for name, xyz in clouds.items():
+        ms = {}
+        for route, fn in (("native", voxel.voxel_downsample_indices),
+                          ("numpy", voxel.voxel_downsample_indices_numpy)):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                keep = fn(xyz, 0.3, "first")
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[route] = (float(np.median(times)), keep)
+        if not np.array_equal(ms["native"][1], ms["numpy"][1]):
+            raise AssertionError(f"native voxel route differs on {name}")
+        rows[name] = dict(points=len(xyz), kept=len(ms["native"][1]),
+                          native_ms=ms["native"][0], numpy_ms=ms["numpy"][0])
+    if slam_a_calls != SLAM_A_FRAMES:
+        raise AssertionError(f"slam_a called the native library "
+                             f"{slam_a_calls} times for {SLAM_A_FRAMES} "
+                             "frames")
+    return dict(phase="native", card=smi, voxel_size=0.3, retention="first",
+                library=str(native.build().name),
+                slam_a_native_calls=slam_a_calls, slam_a_frames=SLAM_A_FRAMES,
+                clouds=rows)
+
+
+def bf16_extract(engines, pts, valid):
+    """Each frame through the float32 and the bfloat16 engine, in turns
+    (f32, bf16, bf16, f32): ms a frame (median) for each, coordinates and
+    validity identical, the features' relative error -> (that dict, the
+    first pass's outputs {bf16: [extract's output a frame]})."""
+    out = {False: [], True: []}
+    ms = {False: [], True: []}
+    for order in ((False, True), (True, False)):
+        for i in range(len(pts)):
+            for on in order:
+                t0 = time.perf_counter()
+                r = engines[on].extract(pts[i:i + 1], valid[i:i + 1])
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+                if order[0] is False:
+                    out[on].append(r)
+    d32, dbf = (np.concatenate([r[0] for r in out[on]]) for on in (False,
+                                                                   True))
+    c = d32.shape[-1] - 3
+    same = bool(np.array_equal(d32[..., c:], dbf[..., c:]) and all(
+        np.array_equal(a[j], b[j]) for a, b in zip(out[False], out[True])
+        for j in (1, 2)))
+    if not same or not np.isfinite(dbf).all():
+        raise AssertionError("bf16: coordinates or validity differ from "
+                             "the float32 run")
+    f32, fbf = d32[..., :c], dbf[..., :c]
+    return dict(frames=len(pts), extract_ms_f32=float(np.median(ms[False])),
+                extract_ms_bf16=float(np.median(ms[True])),
+                coordinates_validity_identical=same,
+                feature_relerr=relerr(fbf, f32),
+                feature_mean_abs_err=float(np.abs(fbf - f32).mean()),
+                feature_scale=float(np.abs(f32).max())), out
+
+
+def bf16_vs_cpu(torch, tenc, cpu_bf, pts, valid, out) -> dict:
+    """The first BF16_CPU_FRAMES frames through `cpu_bf` (the bfloat16
+    engine's config on the CPU) with the encoder's gate forced to bfloat16
+    there, against the card's bfloat16 (`out[True]`) and float32
+    (`out[False]`) descriptors of the same frames. Both sides round where
+    Flax does; only the order of float32 sums differs, and a rounding that
+    flips on it spreads downstream. A cast point placed elsewhere rounds
+    independently of the CPU's, which puts the card's bfloat16 features as
+    far from the CPU's as from float32 or farther. Raises unless validity
+    and survivors are identical and the mean absolute difference to the
+    CPU's bfloat16 features is at most BF16_CPU_RATIO of the one to the
+    card's float32 features."""
+    gate = tenc.activation_dtype
+    tenc.activation_dtype = lambda act, device: (
+        torch.bfloat16 if act == "bfloat16" else torch.float32)
+    try:
+        cpu = [cpu_bf.extract(pts[i:i + 1], valid[i:i + 1])
+               for i in range(BF16_CPU_FRAMES)]
+    finally:
+        tenc.activation_dtype = gate
+    c = cpu[0][0].shape[-1] - 3
+    f_cpu, f_bf, f_32 = (np.concatenate([r[0][..., :c] for r in rs])
+                         for rs in (cpu, out[True][:BF16_CPU_FRAMES],
+                                    out[False][:BF16_CPU_FRAMES]))
+    same = all(np.array_equal(a[j], b[j]) for a, b in zip(cpu, out[True])
+               for j in (1, 2))
+    both = np.concatenate([r[1] for r in cpu])
+    d_cpu = np.abs(f_bf - f_cpu)[both]
+    d_32 = np.abs(f_bf - f_32)[both]
+    res = dict(frames=BF16_CPU_FRAMES, validity_identical=same,
+               coordinates_identical=all(
+                   np.array_equal(a[0][..., c:], b[0][..., c:])
+                   for a, b in zip(cpu, out[True])),
+               bit_equal_share=float((d_cpu == 0).mean()),
+               bit_equal_share_f32=float((d_32 == 0).mean()),
+               mean_abs_diff=float(d_cpu.mean()),
+               mean_abs_diff_f32=float(d_32.mean()),
+               ratio=float(d_cpu.mean() / d_32.mean()),
+               limit=BF16_CPU_RATIO, relerr=relerr(f_bf, f_cpu))
+    if not same or not res["ratio"] <= BF16_CPU_RATIO:
+        raise AssertionError(f"bf16: the card's bfloat16 features do not "
+                             f"follow the CPU's: {res}")
+    return res
+
+
+def bf16_train_steps(torch, kernels, entries, launched, cfg_path: str,
+                     tmp: str, device="cuda") -> dict:
+    """One stage-1 step of the Trainer from the trained weights on the
+    train phase's config, with tpu.encoder_bf16 off and on (the same
+    batch): each loss finite."""
+    from deeppointmap_tpu_torch.config import config_from_yaml
+    from deeppointmap_tpu_torch.data.dataset import SlamDatasets
+    from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
+    from deeppointmap_tpu_torch.pipeline.train import training_transforms
+    from deeppointmap_tpu_torch.pipeline.trainer import Trainer
+
+    enc_sd, dec_sd = load_msgpack_weights(WEIGHTS)
+    out = {}
+    for on in (False, True):
+        args = config_from_yaml(cfg_path)
+        args.tpu.encoder_bf16 = on
+        args.infer_tgt = os.path.join(tmp, f"bf16_train_{on}")
+        rng = np.random.default_rng(0)
+        ds = SlamDatasets(args, data_transforms=training_transforms(args,
+                                                                    rng),
+                          rng=rng)
+        trainer = Trainer(args, ds, enc_sd, dec_sd, rng=rng, device=device)
+        batch = next(trainer._iter_batches())
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(batch)["loss"])
+        sec = time.perf_counter() - t0
+        launches_of(kernels, entries, f"bf16_train_{'on' if on else 'off'}",
+                    launched)
+        out["on" if on else "off"] = dict(
+            loss=loss, first_step_s=sec, act_dtype=trainer.encoder.act_dtype,
+            params_float32=all(p.dtype == torch.float32
+                               for p in trainer.encoder.parameters()))
+        trainer.close()
+        del trainer
+        if not np.isfinite(loss):
+            raise AssertionError(f"bf16 train step ({on}): loss {loss}")
+    out["loss_relerr"] = abs(out["on"]["loss"] - out["off"]["loss"]) / abs(
+        out["off"]["loss"])
+    return out
+
+
 def train_config(root: str, out: str) -> dict:
     """scripts/train_full_size.py full_train_args for one epoch of each
     stage: DeepPointMap-B (CONFIG's trees, configs/infer/sample.yaml) at the
@@ -1281,7 +1536,7 @@ def train_phase(torch, kernels, entries, launched, smi, tmp,
     root, out = os.path.join(tmp, "train_world"), os.path.join(tmp,
                                                                "train_log")
     agent_dir = render_train_scene(syn, root)
-    cfg_path = os.path.join(tmp, "train.yaml")
+    cfg_path = os.path.join(tmp, TRAIN_YAML)
     with open(cfg_path, "w") as f:
         yaml.safe_dump(train_config(root, out), f)
 
@@ -1475,22 +1730,22 @@ def main(out_dir: str = "") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from deeppointmap_tpu_torch import kernels
+    from deeppointmap_tpu_torch import kernels, native
     from deeppointmap_tpu_torch.config import config_from_dict
     from deeppointmap_tpu_torch.data import synthetic as syn
+    from deeppointmap_tpu_torch.data import voxel
     from deeppointmap_tpu_torch.data.preprocess import (PreprocessConfig,
                                                         preprocess)
     from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
     from deeppointmap_tpu_torch.data.readers import read_auto
     from deeppointmap_tpu_torch.models import decoder as decoder_mod
+    from deeppointmap_tpu_torch.models import encoder as tenc
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.ops import neighbors, normals, sampling, sweep
     from deeppointmap_tpu_torch.pipeline import infer
     from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 
-    # full f32 everywhere: TF32 would round distances at +-60 m
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    kernels.strict_matmuls()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1575,7 +1830,8 @@ def main(out_dir: str = "") -> int:
     # the warm-up's batch of four runs the level graphs and FP at B = 4;
     # training runs the stage-1 grouping, the level graphs and FP at the
     # frames of a step (TRAIN_BATCHES)
-    batched = [(WARMUP_BATCH, *sh) for sh in knn_shapes[4:]]
+    # and offline extraction (phase sharded) preprocesses 4 scans at once
+    batched = [(WARMUP_BATCH, *sh) for sh in knn_shapes[:1] + knn_shapes[4:]]
     batched += [(b, *sh) for b in TRAIN_BATCHES for sh in knn_shapes[3:]
                 if (b, *sh) not in batched]
     stride = int(args.tpu.infomat_stride)
@@ -1678,6 +1934,12 @@ def main(out_dir: str = "") -> int:
     emit(dict(phase="main", card=smi, **main_out["summary"],
               launches=launches))
 
+    # ------------------------------------------- offline batch extraction
+    pts_s, valid_s, _ = render_scans(syn, voxel_downsample_indices, raw,
+                                     n_frames=SHARDED_SCANS)
+    emit(sharded_phase(torch, kernels, entries, launched, smi, pts_s,
+                       valid_s, enc_sd, dec_sd, pre))
+
     # ------------------------------------- SLAM through the CLI's path
     with tempfile.TemporaryDirectory() as tmp:
         seq_a, seq_b, seq_c, seq_d, seq_h = (os.path.join(tmp, d)
@@ -1698,8 +1960,10 @@ def main(out_dir: str = "") -> int:
         calls = count_calls(engine_a)
         normals.USE_FUSED_SWEEP = True
         kernels.reset_launches()
+        voxel_calls = native.LIB.voxel_calls
         system_a, log_a, sec_a = run_slam(infer, args_a, engine_a, seq_a,
                                           os.path.join(tmp, "out_a"))
+        voxel_calls = native.LIB.voxel_calls - voxel_calls
         launches = launches_of(kernels, entries, "slam_a", launched)
         reached = dict(calls)
         k4_shape = sweep.sweep_shape(1, N_PAD, pre_a.sweep_k,
@@ -1717,6 +1981,7 @@ def main(out_dir: str = "") -> int:
                                  first_file)
         emit(dict(phase="slam_a", card=smi, **summary_a, launches=launches,
                   engine_calls=reached, driven_directly=driven))
+        emit(native_phase(native, voxel, syn, raw[0], voxel_calls, smi))
 
         # slam_b: sweep reuse off, K3 for the moments beside K2
         normals.USE_FUSED_SWEEP = False
@@ -2089,6 +2354,53 @@ def main(out_dir: str = "") -> int:
 
         # ------------------------------------------------------ train
         emit(train_phase(torch, kernels, entries, launched, smi, tmp))
+
+        # ------------------------------------------------------- bf16
+        cfg_bf = copy.deepcopy(CONFIG)
+        cfg_bf["tpu"]["encoder_bf16"] = True
+        engine_bf = InferenceEngine(config_from_dict(cfg_bf,
+                                                     multi_thread=False),
+                                    enc_sd, dec_sd, preprocess_cfg=pre,
+                                    device="cuda")
+        extract_bf, out_bf = bf16_extract({False: engine, True: engine_bf},
+                                          pts, valid)
+        cpu_bf = InferenceEngine(config_from_dict(cfg_bf,
+                                                  multi_thread=False),
+                                 enc_sd, dec_sd, preprocess_cfg=pre,
+                                 device="cpu")
+        extract_bf["cpu_bf16"] = bf16_vs_cpu(torch, tenc, cpu_bf, pts, valid,
+                                             out_bf)
+        del cpu_bf, out_bf
+        # the bf16 path's launches: the accuracy run alone
+        kernels.reset_launches()
+        cfg_e = copy.deepcopy(acc_cfg)
+        cfg_e["tpu"]["encoder_bf16"] = True
+        args_e = config_from_dict(cfg_e, multi_thread=False)
+        engine_e = InferenceEngine(
+            args_e, enc_sd, dec_sd, device="cuda",
+            preprocess_cfg=infer.device_preprocess_config(args_e))
+        if engine_e.encoder.act_dtype != "bfloat16":
+            raise AssertionError("bf16: the option did not reach the encoder")
+        out_e = os.path.join(tmp, "out_acc_bf16")
+        system_e, log_e, sec_e = run_slam(infer, args_e, engine_e, acc_dir,
+                                          out_e)
+        sm = slam_summary(system_e, [c for c, _ in log_e], sec_e, out_e,
+                          raw[1], max_drop_share=None)
+        launches = launches_of(kernels, entries, "bf16", launched)
+        require(launches, ("fps", "knn"), "bf16")
+        emit(dict(phase="bf16", card=smi, engine=extract_bf,
+                  accuracy=dict(
+                      frames=ACC_FRAMES, ate_aligned_m=sm["ate_aligned_m"],
+                      ate_aligned_f32_m=acc["loops_on"]["ate_aligned_m"],
+                      ate_unaligned_m=sm["ate_m"],
+                      frames_accepted=sm["frames"] - sm["dropped"],
+                      keyframes=sm["keyframes"], loop_edges=sm["loop_edges"],
+                      scans_per_s=sm["scans_per_s"],
+                      scans_per_s_f32=acc["loops_on"]["scans_per_s"]),
+                  train_step=bf16_train_steps(
+                      torch, kernels, entries, launched,
+                      os.path.join(tmp, TRAIN_YAML), tmp),
+                  launches=launches))
 
         # ---------------------------------------------- CPU comparison
         cpu = InferenceEngine(args, enc_sd, dec_sd, preprocess_cfg=pre,

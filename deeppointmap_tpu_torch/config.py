@@ -10,11 +10,12 @@ port reads the keys of its slices (`encoder_points`, `reg_buckets`,
 `upload_quant`, `upload_quant_lsb`, `infomat_stride`, `device_preprocess`,
 `sweep_reuse`, `device_cache_mb`, `retain_nonkeyframe_pcd`,
 `robust_register`, `sequence_parallel`, `odometer_pipeline_depth`,
-`staleness_fallback`, `staleness_fallback_frac`, `agent_platform`, and for
-training `remat`, `data_parallel`) and ignores the rest: the neighbour
-grades (every query of the port is exact but K4's), `bf16` (the port
-trains in float32 with TF32 off) and `checkpointer` (torch.save), except
-`encoder_bf16: true`, which the entry points refuse (`refuse_unported`). PyYAML is imported only where a YAML file is
+`staleness_fallback`, `staleness_fallback_frac`, `agent_platform`,
+`encoder_bf16` (the encoder's feature path in bfloat16 on a CUDA device,
+models/encoder.py), and for training `remat`, `data_parallel`) and ignores
+the rest: the neighbour grades (every query of the port is exact but
+K4's), `bf16` (the port computes float32 with TF32 off) and
+`checkpointer` (torch.save). PyYAML is imported only where a YAML file is
 read. The training CLI (pipeline/train.py) reads the same YAML trees as
 the JAX package's: configs/train/example.yaml loads as it is.
 """
@@ -211,13 +212,3 @@ def save_settings(args: Config, path: str) -> None:
         for k in sorted(args.keys()):
             f.write(f"{k}: {args[k]}\n")
 
-
-def refuse_unported(args: Config) -> None:
-    """Raise before any side effect for an option of the JAX package that
-    changes results and that the port does not implement: today
-    `tpu.encoder_bf16: true` (the JAX encoder then runs its feature path in
-    bfloat16; the port's runs float32)."""
-    if (args.get("tpu") or {}).get("encoder_bf16", False):
-        raise NotImplementedError(
-            "tpu.encoder_bf16: true is not ported (the port's encoder runs "
-            "float32); remove the key or set it to false")

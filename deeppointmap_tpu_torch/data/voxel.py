@@ -1,6 +1,5 @@
-"""Host-side voxel-grid downsampling (NumPy; port of
-deeppointmap_tpu/data/voxel.py without its native hash path, which keeps
-the same survivors in the same order).
+"""Host-side voxel-grid downsampling (port of deeppointmap_tpu/data/
+voxel.py).
 
 Semantics mirror the reference transform (reference: dataloader/
 transforms.py:322-356): one point retained per occupied voxel, either the
@@ -9,13 +8,18 @@ center ('center'); optional cap to the `num` most-populated voxels.
 
 This runs on the host because it is the *first* step of the pipeline (raw
 scans are ~122k points and variable-size); its output feeds the fixed-shape
-device pipeline. The implementation is vectorized NumPy -- a single
-lexsort + unique over int64 voxel keys.
+device pipeline. 'first' retention without a cap takes the native hash
+pass (deeppointmap_tpu_torch/native), as in the JAX package; everything
+else is vectorized NumPy -- a single sort + unique over int64 voxel keys
+(`voxel_downsample_indices_numpy`, also the plain version the native route
+is tested against).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from deeppointmap_tpu_torch import native
 
 
 def voxel_ids(xyz: np.ndarray, voxel_size: float) -> np.ndarray:
@@ -36,6 +40,23 @@ def voxel_downsample_indices(
     id (matching the reference's np.unique ordering,
     dataloader/transforms.py:349)."""
     assert retention in ("first", "center")
+    if xyz.shape[0] and num is None and retention == "first":
+        # the native pass keeps the same survivors in first-seen order;
+        # 'center' stays NumPy: float rounding in the center distance
+        # flips near-tie winners
+        keep = native.LIB.voxel_downsample_first(xyz, voxel_size)
+        vid = voxel_ids(xyz, voxel_size)
+        return keep[np.argsort(vid[keep], kind="stable")]
+    return voxel_downsample_indices_numpy(xyz, voxel_size, retention, num)
+
+
+def voxel_downsample_indices_numpy(
+    xyz: np.ndarray,
+    voxel_size: float,
+    retention: str = "center",
+    num: int | None = None,
+) -> np.ndarray:
+    """voxel_downsample_indices in NumPy alone."""
     n = xyz.shape[0]
     if n == 0:
         return np.zeros((0,), dtype=np.int64)

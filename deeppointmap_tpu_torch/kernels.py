@@ -5,6 +5,8 @@ C interface, bound with `ctypes`. A library is built at first use into
 `build/kernels/` beside the package (listed in `.gitignore`), under a
 name that carries a hash of its source and of the headers it includes, so
 an edited kernel is never served from a stale build. `build_all()` starts every `nvcc` at once.
+The same build-and-bind helpers (`library_path`, `start_compile`,
+`finish_compile`, `bind`) serve the host library in `native/` with g++.
 
 Nothing here runs at import: this module is imported on machines that
 have neither `nvcc` nor a GPU, where the ops take their plain versions.
@@ -41,6 +43,66 @@ def _nvcc() -> str:
     return found
 
 
+def library_path(build_dir: Path, stem: str, key: bytes) -> Path:
+    """`build_dir/lib<stem>-<hash>.so`, the hash over `key`: everything the
+    library depends on (sources, headers, flags)."""
+    return build_dir / f"lib{stem}-{hashlib.sha1(key).hexdigest()[:12]}.so"
+
+
+def start_compile(compiler, flags, source: Path, path: Path):
+    """Start `compiler()` on `source` unless `path` exists -> the process
+    (or None), so that several builds run at once. Several processes may
+    build the same library: each writes its own file and `finish_compile`
+    renames it into place atomically."""
+    if path.exists():
+        return None
+    exe = compiler()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([exe, *flags, "-o", str(tmp), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.dpm_build = (Path(exe).name, source, tmp, path)
+    return proc
+
+
+def finish_compile(proc) -> str:
+    """Wait for a `start_compile` process and put its library in place ->
+    the compiler's output. Raises RuntimeError with that output when the
+    compiler refused the source."""
+    if proc is None:
+        return ""
+    out, _ = proc.communicate()
+    tool, source, tmp, path = proc.dpm_build
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tool} failed for {source.name}:\n{out}")
+    os.replace(tmp, path)
+    return out
+
+
+def bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at `path` and give each symbol in `signatures`
+    its argtypes and an int result."""
+    lib = ctypes.CDLL(str(path))
+    for symbol, argtypes in signatures.items():
+        f = getattr(lib, symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def strict_matmuls() -> None:
+    """The matmul settings the port's results rely on, process-wide: no
+    TF32 (distances at +-60 m need full float32), and a bfloat16 GEMM
+    (`tpu.encoder_bf16`) accumulates in float32 to the end, as the TPU's
+    MXU does, with no bfloat16 split-K partial sums."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def device_guard(device):
     """Make `device` the calling thread's current CUDA device for the
     duration: the C entry points set kernel attributes and launch on the
@@ -75,43 +137,25 @@ class Kernel:
 
     def _lib_path(self) -> Path:
         text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
-        digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"lib{self.name}-{digest[:12]}.so"
+        return library_path(BUILD_DIR, self.name,
+                            text + " ".join(NVCC_FLAGS).encode())
 
     def start_build(self):
-        """Start nvcc for this source unless its library exists; returns
-        the process (or None) so that several builds run at once."""
-        path = self._lib_path()
-        if path.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        proc.dpm_paths = (tmp, path)
-        return proc
+        """Start nvcc for this source unless its library exists."""
+        return start_compile(_nvcc, NVCC_FLAGS, self.source,
+                             self._lib_path())
 
     def finish_build(self, proc) -> None:
-        if proc is None:
-            return
-        out, _ = proc.communicate()
-        self.build_log = out
-        tmp, path = proc.dpm_paths
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{out}")
-        os.replace(tmp, path)
+        if proc is not None:
+            self.build_log = finish_compile(proc)
 
     def fn(self):
         """The bound C entry point, building the library if needed."""
         with self._lock:
             if self._fn is None:
                 self.finish_build(self.start_build())
-                lib = ctypes.CDLL(str(self._lib_path()))
-                f = getattr(lib, self.symbol)
-                f.argtypes = self.argtypes
-                f.restype = ctypes.c_int
-                self._fn = f
+                lib = bind(self._lib_path(), {self.symbol: self.argtypes})
+                self._fn = getattr(lib, self.symbol)
             return self._fn
 
     def launch(self, *args, device=None, shape: tuple = ()) -> None:

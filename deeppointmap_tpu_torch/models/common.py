@@ -5,6 +5,11 @@ Submodules are named after the Flax scopes (`dense{i}`, `norm{i}`,
 `in_proj_weight`, `out_proj`) so that a Flax checkpoint maps onto the
 state dict by renaming alone (models/weights.py). LayerNorm uses Flax's
 epsilon, 1e-6.
+
+`MLP` computes in the dtype of its input: float32, or bfloat16 on the
+encoder's feature path under `tpu.encoder_bf16` (models/encoder.py), where
+`linear_bf16` and `layer_norm_bf16` round where Flax's `nn.Dense` and
+`nn.LayerNorm` with `dtype=bfloat16` do. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -34,11 +39,37 @@ class MLP(nn.Module):
             in_channel = ch
 
     def forward(self, x):
+        bf16 = x.dtype == torch.bfloat16
         for i in range(self.n):
-            x = getattr(self, f"norm{i}")(getattr(self, f"dense{i}")(x))
+            dense, norm = getattr(self, f"dense{i}"), getattr(self, f"norm{i}")
+            x = layer_norm_bf16(norm, linear_bf16(dense, x)) if bf16 \
+                else norm(dense(x))
             if not (self.drop_last_act and i == self.n - 1):
                 x = F.relu(x)
         return x
+
+
+def linear_bf16(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """Flax `nn.Dense(dtype=bfloat16)`: the input, the float32 kernel and
+    the bias rounded to bfloat16; the product (float32 accumulation)
+    rounded to bfloat16, then the bias added in bfloat16."""
+    bf = torch.bfloat16
+    y = F.linear(x.to(bf), layer.weight.to(bf))
+    return y if layer.bias is None else y + layer.bias.to(bf)
+
+
+def layer_norm_bf16(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """Flax `nn.LayerNorm(dtype=bfloat16)` (flax/linen/normalization.py
+    `_compute_stats`, `_normalize`): mean and variance in float32 with the
+    fast variance E[x^2] - E[x]^2 clipped at 0, the float32 scale and bias
+    applied in float32, one rounding to bfloat16 at the end.
+    (`F.layer_norm` on bfloat16 would round the scale and bias first.)"""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu,
+                      min=0.0)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight
+    return ((xf - mu) * mul + norm.bias).to(torch.bfloat16)
 
 
 class MultiHeadAttention(nn.Module):

@@ -12,6 +12,16 @@ kernel K1 on the GPU) or voxel-grid sampling (plain PyTorch). Queriers
 self-kNN per pyramid level, kernel K2 on the GPU), knn (K2) or ball (plain
 PyTorch). The level graphs serve the hybrid querier only, as in the JAX
 package.
+
+Feature dtype (yaml `tpu.encoder_bf16`, `act_dtype`): `activation_dtype`
+gives bfloat16 only when the option is on and the encoder runs on a CUDA
+device, float32 otherwise, as the JAX package's trace-time gate gives
+float32 off the TPU. The stem rounds the features to that dtype and every
+block keeps the dtype of the features it is given, casting where the JAX
+encoder casts: the grouped offsets (taken in float32), the residual's
+identity, FeaturePropagation's concat (its 3-NN weights and weighted sum
+stay float32); the output is float32. Geometry stays float32: coordinates,
+sampling, neighbour queries and radius tests are those of the float32 run.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from deeppointmap_tpu_torch.models.common import MLP
+from deeppointmap_tpu_torch.models.common import MLP, linear_bf16
 from deeppointmap_tpu_torch.ops.neighbors import (ball_query, f32,
                                                   group_points, hybrid_query,
                                                   knn)
@@ -34,6 +44,16 @@ QUERIERS = ("knn", "ball", "hybrid")
 #: per-stage sampler: (type, voxel_size, sample_range); size and range are
 #: ignored for fps (reference: pointnext.py:21,30-35)
 DEFAULT_SAMPLE = ("fps", 0.0, 0.0)
+
+
+def activation_dtype(act_dtype: str, device: torch.device) -> torch.dtype:
+    """The encoder's feature dtype: bfloat16 when `act_dtype` asks for it
+    and the encoder runs on a CUDA device, float32 otherwise (the JAX
+    gate, deeppointmap_tpu/models/encoder.py:417-418, runs float32 off the
+    TPU)."""
+    if act_dtype == "bfloat16" and device.type == "cuda":
+        return torch.bfloat16
+    return torch.float32
 
 
 def _sample_batch(coor, valid, k: int, sample=DEFAULT_SAMPLE):
@@ -104,9 +124,11 @@ def _group_from_sweep(center_idx, valid, sweep, k: int, radius: float):
 
 
 def _group(coor, fea, centers, group_idx, radius: float):
-    """[grouped features | offsets / radius] (B, S, K, C + 3)."""
+    """[grouped features | offsets / radius] (B, S, K, C + 3) in the
+    features' dtype; the O(1) offsets are taken in float32, then cast."""
     g_coor = (group_points(coor, group_idx) - centers[:, :, None, :]) / radius
-    return torch.cat([group_points(fea, group_idx), g_coor], dim=-1)
+    return torch.cat([group_points(fea, group_idx), g_coor.to(fea.dtype)],
+                     dim=-1)
 
 
 class SetAbstraction(nn.Module):
@@ -175,7 +197,7 @@ class InvResMLP(nn.Module):
 
     def forward(self, coor, fea, valid, graph=None):
         out = self.pw_conv(self.la(coor, fea, valid, graph=graph))
-        return torch.relu(out + fea)
+        return torch.relu(out + fea.to(out.dtype))
 
 
 class Stage(nn.Module):
@@ -223,14 +245,16 @@ class FeaturePropagation(nn.Module):
         idx, d2 = knn(coor2, coor1, 3, valid2)
         w = 1.0 / torch.clamp(d2, min=1e-8)
         w = w / w.sum(dim=-1, keepdim=True)
+        # bfloat16 features times the float32 weights sum in float32
         inter = (group_points(fea2, idx) * w[..., None]).sum(dim=2)
-        return self.mlp(torch.cat([fea1, inter], dim=-1))
+        return self.mlp(torch.cat([fea1, inter.to(fea1.dtype)], dim=-1))
 
 
 class Encoder(nn.Module):
     """forward(points (B, N, 3+), valid (B, N)[, sweep]) -> (coor (B, S, 3),
-    fea (B, S, out_channel), valid (B, S)). Config fields mirror the yaml
-    `encoder:` tree."""
+    fea (B, S, out_channel) float32, valid (B, S)). Config fields mirror
+    the yaml `encoder:` tree; `act_dtype` ("float32" | "bfloat16") is
+    `tpu.encoder_bf16`."""
 
     def __init__(self, npoint=(4096, 1024, 256, 64, 16),
                  radius_list=((0.05, 0.1), (0.1, 0.2), (0.2, 0.4, 0.4),
@@ -239,8 +263,13 @@ class Encoder(nn.Module):
                                (16, 16)),
                  in_channel: int = 3, out_channel: int = 128, width: int = 16,
                  expansion: int = 4, upsample_layers: int = 2,
-                 bias: bool = True, sample=None, querier: str = "hybrid"):
+                 bias: bool = True, sample=None, querier: str = "hybrid",
+                 act_dtype: str = "float32"):
         super().__init__()
+        if act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"act_dtype {act_dtype!r}: use 'float32' or "
+                             "'bfloat16'")
+        self.act_dtype = act_dtype
         self.npoint = tuple(npoint)
         sample = tuple(tuple(x) for x in (sample or ()))
         sample += (DEFAULT_SAMPLE,) * (len(self.npoint) - len(sample))
@@ -296,7 +325,9 @@ class Encoder(nn.Module):
                    expansion=e["expansion"],
                    upsample_layers=e.upsample_layers,
                    bias=e.get("bias", True), sample=tuple(sample),
-                   querier=querier)
+                   querier=querier,
+                   act_dtype="bfloat16" if (args.get("tpu") or {}).get(
+                       "encoder_bf16", False) else "float32")
 
     def forward(self, points, valid, sweep=None):
         """sweep: optional (idx (B, N, Ks), dist2 (B, N, Ks)) candidate
@@ -304,7 +335,11 @@ class Encoder(nn.Module):
         `points`; it serves the FIRST stage's grouping without a fresh
         (npoint0, N) query."""
         coor = points[..., :3].float()
-        fea = self.point_mlp0(points[..., :self.in_channel].float())
+        fea = points[..., :self.in_channel].float()
+        if activation_dtype(self.act_dtype, points.device) == torch.bfloat16:
+            fea = linear_bf16(self.point_mlp0, fea)
+        else:
+            fea = self.point_mlp0(fea)
         levels = [(coor, fea, valid)]
         graph = None
         n = len(self.npoint)
@@ -326,4 +361,4 @@ class Encoder(nn.Module):
             c1, f1, v1 = levels[n - i - 1]
             f = getattr(self, f"up{i}")(c1, c, f1, f, v)
             c, v = c1, v1
-        return c, f, v
+        return c, f.float(), v

@@ -28,8 +28,7 @@ import time
 
 import numpy as np
 
-from deeppointmap_tpu_torch.config import (load_config, refuse_unported,
-                                           save_settings)
+from deeppointmap_tpu_torch.config import load_config, save_settings
 from deeppointmap_tpu_torch.data.dataset import BasicAgent
 from deeppointmap_tpu_torch.data.preprocess import PreprocessConfig
 from deeppointmap_tpu_torch.data.transforms import PointCloudTransforms
@@ -188,13 +187,12 @@ def _make_engine(args, states, device) -> InferenceEngine:
 
 
 def run_inference(args) -> int:
-    """What `main` does with a loaded config: refuse an unported option
-    and load the weights (`.msgpack` or the reference's `.pth`) before
-    anything is written, snapshot the settings, then run every existing
+    """What `main` does with a loaded config: load the weights
+    (`.msgpack` or the reference's `.pth`) before anything is written,
+    snapshot the settings, then run every existing
     sequence of `infer_src` into `infer_tgt/SeqNN`, on one engine or, with
     `tpu.sequence_parallel` > 1, on several at once; under `--profile`,
     inside a profiler trace. -> the number of engines."""
-    refuse_unported(args)
     states = build_models(args, args.weight)
     os.makedirs(args.infer_tgt, exist_ok=True)
     save_settings(args, os.path.join(args.infer_tgt, "settings.yaml"))

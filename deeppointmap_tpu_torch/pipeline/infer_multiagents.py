@@ -39,8 +39,7 @@ import os
 import subprocess
 import sys
 
-from deeppointmap_tpu_torch.config import (load_config, refuse_unported,
-                                           save_settings)
+from deeppointmap_tpu_torch.config import load_config, save_settings
 from deeppointmap_tpu_torch.data.dataset import BasicAgent
 from deeppointmap_tpu_torch.pipeline.common import build_models
 from deeppointmap_tpu_torch.pipeline.infer import (device_preprocess_config,
@@ -205,7 +204,6 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = load_config(argv)
     args.mode = "infer"
-    refuse_unported(args)
 
     if int(args.agent_index) >= 1:
         run_agent_worker(args)

@@ -15,8 +15,10 @@ N --process_id i`, or from torchrun's environment when no address is
 given; `tpu.data_parallel: auto` then spans the group.
 
 `train.auto_cast` and `tpu.bf16` do not apply: the port trains in float32
-with TF32 off. `tpu.checkpointer` does not apply either: checkpoints are
-torch.save files (pipeline/trainer.py).
+with TF32 off, but for the encoder's activations under `tpu.encoder_bf16`
+on a CUDA device (parameters and optimizer state stay float32).
+`tpu.checkpointer` does not apply either: checkpoints are torch.save files
+(pipeline/trainer.py).
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ import sys
 import numpy as np
 import torch
 
-from deeppointmap_tpu_torch.config import (load_config, refuse_unported,
-                                           save_settings)
+from deeppointmap_tpu_torch.config import load_config, save_settings
 from deeppointmap_tpu_torch.data.dataset import SlamDatasets
 from deeppointmap_tpu_torch.data.transforms import (PointCloudTransforms,
                                                     ToTensor)
@@ -71,7 +72,6 @@ def main(argv=None) -> Trainer:
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = load_config(argv)
     args.mode = "train"
-    refuse_unported(args)
     device = init_distributed(args) if args.distributed else str(args.device)
 
     rng = np.random.default_rng(int(args.get("seed", 0) or 0))

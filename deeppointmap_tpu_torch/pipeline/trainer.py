@@ -85,9 +85,7 @@ class Trainer:
         self.dataset = dataset
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            # full f32: distances at +-60 m go through these matmuls
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            kernels.strict_matmuls()
         self.encoder = Encoder.from_config(args)
         self.decoder = Decoder.from_config(args)
         self.encoder.load_state_dict(enc_sd)

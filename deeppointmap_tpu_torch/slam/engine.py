@@ -39,6 +39,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from deeppointmap_tpu_torch import kernels
 from deeppointmap_tpu_torch.data.preprocess import preprocess
 from deeppointmap_tpu_torch.models.decoder import Decoder, num_pairs_for
 from deeppointmap_tpu_torch.models.encoder import Encoder
@@ -101,9 +102,7 @@ class InferenceEngine:
         if self.device.type == "cuda":
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
-            # distances at +-60 m need full f32: TF32 would round them
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            kernels.strict_matmuls()
             self._upload_stream = torch.cuda.Stream(self.device)
             self._fetch_stream = torch.cuda.Stream(self.device)
         self.args = args

@@ -17,6 +17,7 @@ ROOT = PORT.parent
 #: the scripts that run on a machine without JAX
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py",
            ROOT / "scripts" / "train_ddp_check.py",
+           ROOT / "scripts" / "extract_multi_check.py",
            ROOT / "tests" / "test_torch_ddp_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeppointmap_tpu")
 MODULES = sorted(
@@ -40,9 +41,9 @@ def test_modules_found():
                  "models.loss", "data.refined_se3", "parallel",
                  "parallel.ddp", "parallel.train_step", "pipeline.batching",
                  "pipeline.train_utils", "pipeline.trainer",
-                 "pipeline.train"):
+                 "pipeline.train", "native", "parallel.sharded_extract"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 50
+    assert len(MODULES) >= 52
 
 
 def test_importing_every_module_loads_no_jax():

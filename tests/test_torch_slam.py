@@ -208,23 +208,46 @@ def test_cli_main_from_yaml(tmp_path):
     assert not (out / "Seq01").exists()
 
 
-def test_unported_modes_are_refused_before_any_side_effect(tmp_path):
-    """What the port still refuses: `tpu.encoder_bf16: true` (the JAX
-    encoder then runs in bfloat16, the port's in float32) raises in both
-    entry points' `main` before the result directory is created."""
+def test_unported_modes_are_refused_before_any_side_effect(tmp_path,
+                                                           monkeypatch):
+    """Nothing is refused any more: `tpu.encoder_bf16: true`, the last
+    option the port refused, runs through both entry points' `main`. It
+    reaches the encoder's gate, which gives float32 on the CPU, and every
+    result is written."""
     yaml = pytest.importorskip("yaml")
+    from deeppointmap_tpu_torch.models import encoder as tenc
     from deeppointmap_tpu_torch.pipeline import infer_multiagents as tma
 
+    seen = set()
+    gate = tenc.activation_dtype
+
+    def spy(act_dtype, device):
+        seen.add((act_dtype, device.type))
+        return gate(act_dtype, device)
+
+    monkeypatch.setattr(tenc, "activation_dtype", spy)
+    rng = np.random.default_rng(11)
+    world = jsyn.make_world(rng, n_clusters=60, extent=30.0,
+                            pts_per_cluster=300)
+    seq = jsyn.write_npz_sequence(
+        str(tmp_path / "world"), world,
+        jsyn.circle_trajectory(60, radius=12.0)[:6], rng=rng,
+        sensor_range=35.0, max_points=8000)
     cfg = slam_config(tmp_path)
+    cfg.pop("weight")
     cfg.pop("multi_thread")
     cfg["tpu"]["encoder_bf16"] = True
-    cfg["infer_tgt"] = str(tmp_path / "out")
-    path = tmp_path / "cfg.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    for main in (tinfer.main, tma.main):
-        with pytest.raises(NotImplementedError, match="encoder_bf16"):
-            main(["--yaml_file", str(path), "--device", "cpu"])
-        assert not (tmp_path / "out").exists()
+    cfg["infer_src"] = [seq]
+    for name, main in (("infer", tinfer.main), ("ma", tma.main)):
+        cfg["infer_tgt"] = str(tmp_path / name)
+        path = tmp_path / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        main(["--yaml_file", str(path), "--device", "cpu"])
+    assert seen == {("bfloat16", "cpu")}
+    for rows in (tmp_path / "infer" / "Seq00" / "trajectory.allframes.txt",
+                 tmp_path / "ma" / "agent_1" / "trajectory.allframes.txt"):
+        rows = np.loadtxt(rows, ndmin=2)
+        assert rows.shape[1] == 12 and np.isfinite(rows).all()
 
 
 def test_pth_weights_run_through_main(tmp_path):

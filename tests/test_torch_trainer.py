@@ -237,11 +237,14 @@ def test_resume_mid_stage_and_at_the_boundary(root, tmp_path):
     assert os.path.exists(os.path.join(c.log_dir, "weights_final.msgpack"))
 
 
-def test_train_yamls_load(tmp_path):
+def test_train_yamls_load(root, tmp_path, monkeypatch):
     """configs/train/example.yaml and scripts/train_full_size.py's
     full_train_args tree load through the port's CLI config, training keys
-    included; `tpu.encoder_bf16: true` is refused before anything is
-    written."""
+    included; `tpu.encoder_bf16: true` (refused before this slice) reaches
+    the encoder of full_train_args's tree, and training runs with it
+    through main (float32 on the CPU, by the encoder's gate)."""
+    from deeppointmap_tpu_torch.models import encoder as tenc
+
     from deeppointmap_tpu_torch.config import load_config
     from scripts.train_full_size import full_train_args
 
@@ -256,8 +259,23 @@ def test_train_yamls_load(tmp_path):
     assert args.tpu.remat is True and args.train.save_cycle == 4
     assert args.train.log_cycle == 25 and args.encoder.npoint[0] == 4096
     tree["tpu"]["encoder_bf16"] = True
-    tree["infer_tgt"] = str(tmp_path / "never")
     path.write_text(yaml.safe_dump(tree))
-    with pytest.raises(NotImplementedError):
-        ttrain.main(["--yaml_file", str(path), "--device", "cpu"])
-    assert not (tmp_path / "never").exists()
+    args = load_config(["--yaml_file", str(path), "--device", "cpu"])
+    assert tenc.Encoder.from_config(args).act_dtype == "bfloat16"
+
+    seen = set()
+    gate = tenc.activation_dtype
+
+    def spy(act_dtype, device):
+        seen.add((act_dtype, device.type))
+        return gate(act_dtype, device)
+
+    monkeypatch.setattr(tenc, "activation_dtype", spy)
+    out = str(tmp_path / "bf16")
+    cfg = tiny_cfg(root, out)
+    cfg["tpu"]["encoder_bf16"] = True
+    path.write_text(yaml.safe_dump(cfg))
+    t = ttrain.main(["--yaml_file", str(path), "--device", "cpu"])
+    assert t.encoder.act_dtype == "bfloat16"
+    assert seen == {("bfloat16", "cpu")}
+    assert os.path.exists(os.path.join(t.log_dir, "weights_final.msgpack"))
