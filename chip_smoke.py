@@ -81,7 +81,7 @@ Phases, in order, each printing one JSON line:
   accuracy  the JAX package's accuracy block on the port: the two-lap world
           of scripts/train_full_size.py build_eval_world (192 frames, seed
           0, artifacts/full_size_occ_v2/render_meta.json) as an npz
-          sequence, single-agent with a copy of full_eval_args (no
+          sequence, single-agent with the recipe's full_eval_args (no
           outlier / low-pass filter, min_dis 0, the RANSAC solve, loop
           gates 0.6 / 0.3): the Umeyama-aligned ATE with loops on and off,
           the unaligned ATE, frames accepted and loop edges; once more
@@ -102,9 +102,10 @@ Phases, in order, each printing one JSON line:
           that shape held to its plain version first, then launched by the
           viewer; the file holds a unit normal for every point.
   train   two-stage training at DeepPointMap-B full width: the scene of
-          scripts/train_full_size.py TRAIN_SCENES[0] (96 frames, ~16k
-          points) rendered by data/synthetic.py, a copy of full_train_args
-          (K_0 3, one epoch a stage) run by `python -m
+          the full-size recipe's TRAIN_SCENES[0] (deeppointmap_tpu_torch/
+          pipeline/full_size.py; 96 frames, ~16k points) rendered by
+          data/synthetic.py, its full_train_args (K_0 3, one epoch a
+          stage) run by `python -m
           deeppointmap_tpu_torch.pipeline.train` as a subprocess on the
           card, warm-started from the trained weights: seconds a step and
           the host's share by stage, peak device memory, loss / top1_acc /
@@ -118,6 +119,17 @@ Phases, in order, each printing one JSON line:
           launches a step), and one stage-1 batch of two frames on the GPU
           against the CPU from the same weights: loss relerr <= 1e-4, every
           gradient ||d|| / ||g|| <= 1e-3 (the worst printed).
+  export  the train phase's weights_final.msgpack written in the
+          reference's .pth schema (save_torch_weight) and read back through
+          pipeline/common.load_weights (state dicts bit-equal); the train
+          scene's first 16 frames through pipeline.infer with the .pth and
+          with the msgpack (trajectory files identical byte for byte); the
+          JAX package's artifacts/full_size model on the recipe's two-lap
+          world (96 frames, full_eval_args, loops on) through the port:
+          every frame accepted or dropped by the system's rules, aligned
+          and unaligned ATE, keyframes and loop edges (not gated). Launches
+          counted from a reset before the two infer runs; K1 and K2 must
+          launch.
   bf16    `tpu.encoder_bf16` on the card: main's frames through an engine
           with the option off and on (ms a frame for each, the features'
           relative error; coordinates and validity must be identical),
@@ -153,6 +165,7 @@ import base64
 import collections
 import contextlib
 import copy
+import filecmp
 import json
 import os
 import re
@@ -165,6 +178,8 @@ import time
 import warnings
 
 import numpy as np
+
+from deeppointmap_tpu_torch.pipeline import full_size
 
 SEED = 0
 N_PAD = 16384
@@ -197,11 +212,14 @@ SHARDED_SCANS = 10
 NATIVE_FRAMES = 8
 KITTI_POINTS = 122880
 WEIGHTS = "artifacts/full_size_occ_v2/weights_final.msgpack"
-#: the train phase's scene: scripts/train_full_size.py TRAIN_SCENES[0]
-#: (world seed 1, a 20 m circle) under its DEFAULT_WORLD / DEFAULT_RENDER
-TRAIN_SCENE = dict(seed=1, radius=20.0, frames=96)
-TRAIN_WORLD = dict(n_clusters=300, extent=60.0, pts_per_cluster=800)
-TRAIN_RENDER = dict(sensor_range=45.0, max_points=16384)
+#: the train phase's scene: the full-size recipe's first training scene
+#: (deeppointmap_tpu_torch/pipeline/full_size.py TRAIN_SCENES[0]: world
+#: seed 1, a 20 m circle) under its compact world and render settings
+TRAIN_SCENE = dict(seed=full_size.TRAIN_SCENES[0][0],
+                   radius=full_size.TRAIN_SCENES[0][1],
+                   frames=full_size.FRAMES_PER_SCENE)
+TRAIN_WORLD = full_size.DEFAULT_WORLD
+TRAIN_RENDER = full_size.DEFAULT_RENDER
 #: frames a training step encodes at once: stage 1 at K = 3 gives 4 (S = 2:
 #: K_max // S = 2 map groups) or 3 (S = 3: one group), stage 2 four a side,
 #: the GPU-against-CPU check 2 (one group of S = 2)
@@ -281,30 +299,12 @@ SYNTHETIC_GATES = dict(edge_confidence_drop=0.0, edge_rmse_drop=10.0,
 #: (calibrated to its coverage-scaled rmse)
 RANSAC_GATES = dict(edge_confidence_drop=0.3, edge_rmse_drop=1.0,
                     key_frame_distance="auto", key_frame_distance_0=4.0)
-#: scripts/train_full_size.py full_eval_args: the JAX package's accuracy
-#: block (no outlier / low-pass filter, no distance floor, the RANSAC solve,
-#: loop gates 0.6 / 0.3), for the same model trees as CONFIG
-EVAL_TRANSFORMS = {
-    "VoxelSample": {"voxel_size": 0.3, "retention": "first"},
-    "DistanceSample": {"min_dis": 0.0, "max_dis": 60.0},
-    "CoordinatesNormalization": {"ratio": 60.0},
-    "ToTensor": {"padding_to": -1},
-}
-EVAL_SLAM = dict(
-    coor_scale=60, odometer_candidates_num=1,
-    registration_sample_odometer=0.5, edge_confidence_drop=0.3,
-    edge_rmse_drop=1.0, max_continuous_drop_scan=5,
-    continuous_drop_scan_strategy="recover", key_frame_distance="auto",
-    key_frame_distance_0=4.0, enable_s2m_adjust=True,
-    registration_sample_mapping=0.5, enable_loop_closure=True,
-    loop_detection_gap=0, loop_detection_transaction_gap=10.0,
-    loop_detection_trust_range=3, loop_detection_gnss_distance=-1,
-    loop_detection_pred_distance=100.0, loop_detection_rotation_min=30.0,
-    loop_detection_translation_min=10.0,
-    loop_detection_prob_acpt_threshold=0.6, loop_detection_candidates_num=1,
-    registration_sample_loop=0.5,
-    loop_detection_confidence_acpt_threshold=0.3,
-    enable_global_optimization=True, global_optimization_gap=0)
+#: the recipe's full_eval_args: the JAX package's accuracy block (no
+#: outlier / low-pass filter, no distance floor, the RANSAC solve, loop
+#: gates 0.6 / 0.3), for the same model trees as CONFIG
+EVAL_TRANSFORMS = full_size.TRANSFORMS
+EVAL_SLAM = json.loads(json.dumps(full_size.full_eval_args("", "")
+                                  .slam_system))
 #: the JAX package's numbers on that world and these args, for reference
 #: only: TPU, as BASELINE.md records them (:502-504, 550-590), not the port's
 JAX_TPU_REFERENCE = dict(
@@ -1444,40 +1444,26 @@ def bf16_train_steps(torch, kernels, entries, launched, cfg_path: str,
 
 
 def train_config(root: str, out: str) -> dict:
-    """scripts/train_full_size.py full_train_args for one epoch of each
-    stage: DeepPointMap-B (CONFIG's trees, configs/infer/sample.yaml) at the
-    16384-point pad, batch 1 in stage 1 (AdamW, cosine) and 4 in stage 2
-    (Adam, cosine). K_0 is 3 where full_train_args starts at 2: with one
-    stage-1 epoch the curriculum never grows, and K = 3 gives steps of both
-    4 and 3 frames."""
-    return dict(
-        dataset=[dict(name="synthetic_full", root=root, scenes=["scene0"],
-                      reader=dict(type="npz"))],
-        transforms=copy.deepcopy(EVAL_TRANSFORMS),
-        encoder=copy.deepcopy(CONFIG["encoder"]),
-        decoder=copy.deepcopy(CONFIG["decoder"]),
-        loss=dict(tau=0.1, offset_value="euclidean", eps_positive=1.0,
-                  eps_offset=2.0, lambda_p=1.0, lambda_c=1.0, lambda_o=1.0),
-        slam_system=dict(coor_scale=60),
-        train=dict(
-            auto_cast=False, save_cycle=1, log_cycle=1, keep_checkpoints=2,
-            registration=dict(
-                num_epochs=1, batch_size=1, K=2, K_0=3, K_mult=2,
-                mult_epoch=1, K_max=4, fill=True, distance=10.0,
-                map_size_max=3, max_pairs=1024,
-                optimizer=dict(type="adamw", kwargs=dict(lr=1e-3)),
-                scheduler=dict(type="cosine", kwargs=dict(eta_min=1e-5))),
-            loop_detection=dict(
-                num_epochs=1, batch_size=4, distance=10.0,
-                optimizer=dict(type="adam", kwargs=dict(lr=1e-3)),
-                scheduler=dict(type="cosine", kwargs=dict(eta_min=1e-5)))),
-        tpu=dict(encoder_points=N_PAD, remat=False, encoder_bf16=False),
-        infer_tgt=out, weight="", checkpoint="")
+    """The recipe's full_train_args (deeppointmap_tpu_torch/pipeline/
+    full_size.py) cut to the train scene and one epoch of each stage:
+    DeepPointMap-B at the 16384-point pad, batch 1 in stage 1 (AdamW,
+    cosine) and 4 in stage 2 (Adam, cosine), a checkpoint and a log line
+    every epoch. K_0 is 3 where the recipe starts at 2: with one stage-1
+    epoch the curriculum never grows, and K = 3 gives steps of both 4 and
+    3 frames."""
+    cfg = json.loads(json.dumps(full_size.full_train_args(root, out, 1, 1)))
+    for key in ("multi_thread", "num_workers", "profile"):
+        cfg.pop(key)
+    cfg["dataset"][0]["scenes"] = ["scene0"]
+    cfg["train"].update(save_cycle=1, log_cycle=1, keep_checkpoints=2)
+    cfg["train"]["registration"]["K_0"] = 3
+    cfg["tpu"] = dict(encoder_points=N_PAD, remat=False, encoder_bf16=False)
+    return cfg
 
 
 def render_train_scene(syn, root: str) -> str:
-    """The train scene as an npz sequence (scene0/0 under `root`), as
-    scripts/train_full_size.py build_training_worlds renders it."""
+    """The train scene as an npz sequence (scene0/0 under `root`), as the
+    recipe's build_training_worlds renders it."""
     rng = np.random.default_rng(TRAIN_SCENE["seed"])
     world = syn.make_world(rng, **TRAIN_WORLD)
     poses = syn.circle_trajectory(TRAIN_SCENE["frames"],
@@ -1715,6 +1701,104 @@ def train_phase(torch, kernels, entries, launched, smi, tmp,
             loss_relerr=loss_relerr, worst_grad_relerr=worst[0],
             worst_grad_tensor=worst[1], tensors=len(grads["cpu"])),
         seconds=time.perf_counter() - t_phase)
+
+
+def same_trajectory_files(out_a: str, out_b: str) -> list:
+    """The trajectory and pose-graph files of two result trees, byte for
+    byte. -> the relative paths compared; raises if one differs."""
+    names = sorted(os.path.relpath(os.path.join(d, f), out_a)
+                   for d, _, files in os.walk(out_a) for f in files
+                   if f.startswith("trajectory.")
+                   and f.endswith((".txt", ".g2o")))
+    if not names:
+        raise AssertionError(f"no trajectory files under {out_a}")
+    differ = [rel for rel in names if not filecmp.cmp(
+        os.path.join(out_a, rel), os.path.join(out_b, rel), shallow=False)]
+    if differ:
+        raise AssertionError(f"{differ} differ between {out_a} and {out_b}")
+    return names
+
+
+def export_phase(torch, kernels, entries, launched, smi, tmp,
+                 device="cuda") -> dict:
+    """The train phase's weights_final.msgpack written in the reference's
+    .pth schema (models/weights.save_torch_weight) and read back through
+    pipeline/common.load_weights: the state dicts bit-equal. Then, counted
+    from a reset just before: TRAIN_INFER_FRAMES of the train scene through
+    pipeline.infer's run_inference with the .pth and with the msgpack
+    (identical trajectory files), and the JAX package's artifacts/full_size
+    model on the recipe's two-lap world (96 frames, full_eval_args, loops
+    on) through the port: every frame accepted or dropped by the system's
+    own rules, the ATE printed (not gated). K1 and K2 must launch."""
+    from deeppointmap_tpu_torch.config import config_from_dict
+    from deeppointmap_tpu_torch.data import synthetic as syn
+    from deeppointmap_tpu_torch.models.weights import save_torch_weight
+    from deeppointmap_tpu_torch.pipeline import infer
+    from deeppointmap_tpu_torch.pipeline.common import load_weights
+    from deeppointmap_tpu_torch.slam.engine import InferenceEngine
+    from deeppointmap_tpu_torch.slam.utils import EXIT_CODE
+
+    t_phase = time.perf_counter()
+    msgpack = os.path.join(tmp, "train_log", "weights_final.msgpack")
+    pth = os.path.join(tmp, "train_log", "weights_final.pth")
+    args = config_from_dict(CONFIG, multi_thread=False)
+    states = load_weights(args, msgpack)
+    save_torch_weight(pth, *states, args)
+    back = load_weights(args, pth)
+    for got, want in zip(back, states):
+        if got.keys() != want.keys() or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want):
+            raise AssertionError("export: the .pth does not read back to "
+                                 "the msgpack's state dicts")
+
+    kernels.reset_launches()
+    outs = {}
+    for name, weight in (("msgpack", msgpack), ("pth", pth)):
+        outs[name] = os.path.join(tmp, f"export_{name}")
+        infer.run_inference(config_from_dict(
+            CONFIG, multi_thread=False, device=device, weight=weight,
+            infer_src=[os.path.join(tmp, "train_infer")],
+            infer_tgt=outs[name], profile=False))
+    compared = same_trajectory_files(outs["msgpack"], outs["pth"])
+
+    ref = os.path.join(REPO, "artifacts/full_size/weights_final.msgpack")
+    full_size.apply_artifact_render(ref)
+    root, out_e = (os.path.join(tmp, d) for d in ("export_world",
+                                                  "export_eval"))
+    full_size.build_eval_world(root)
+    args_e = full_size.full_eval_args(root, out_e)
+    engine = InferenceEngine(args_e, *load_weights(args_e, ref),
+                             device=device,
+                             preprocess_cfg=infer.device_preprocess_config(
+                                 args_e))
+    system, log, sec = run_slam(infer, args_e, engine, args_e.infer_src[0],
+                                out_e)
+    launches = launches_of(kernels, entries, "export", launched)
+    require(launches, ("fps", "knn"), "export")
+    lap = syn.circle_trajectory(full_size.EVAL_WORLD["frames_per_lap"],
+                                radius=full_size.EVAL_WORLD["radius"])
+    codes = [c for c, _ in log]
+    rules = {c.name for c in EXIT_CODE} - {"exit"}
+    if len(codes) != 2 * len(lap) or not set(codes) <= rules:
+        raise AssertionError(f"export eval: {len(codes)} frames, codes "
+                             f"{sorted(set(codes))}")
+    sm = slam_summary(system, codes, sec, out_e, lap * 2,
+                      max_drop_share=None)
+    return dict(
+        phase="export", card=smi, pth_bytes=os.path.getsize(pth),
+        state_dicts_bit_equal=True, infer_frames=TRAIN_INFER_FRAMES,
+        infer_files_identical=compared,
+        reference_eval=dict(
+            weights="artifacts/full_size/weights_final.msgpack",
+            args="deeppointmap_tpu_torch/pipeline/full_size.py "
+                 "full_eval_args, loops on",
+            frames=len(codes), ate_aligned_m=sm["ate_aligned_m"],
+            ate_unaligned_m=sm["ate_m"], codes=sm["codes"],
+            frames_accepted=sm["frames"] - sm["dropped"],
+            keyframes=sm["keyframes"], loop_edges=sm["loop_edges"],
+            scans_per_s=sm["scans_per_s"]),
+        launches=launches, seconds=time.perf_counter() - t_phase)
 
 
 def main(out_dir: str = "") -> int:
@@ -2354,6 +2438,9 @@ def main(out_dir: str = "") -> int:
 
         # ------------------------------------------------------ train
         emit(train_phase(torch, kernels, entries, launched, smi, tmp))
+
+        # ----------------------------------------------------- export
+        emit(export_phase(torch, kernels, entries, launched, smi, tmp))
 
         # ------------------------------------------------------- bf16
         cfg_bf = copy.deepcopy(CONFIG)

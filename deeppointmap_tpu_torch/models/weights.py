@@ -23,6 +23,9 @@ state_dict, 'decoder': state_dict} of its torch modules, reference:
 pipeline/infer.py:63-65): `convert_encoder` / `convert_decoder` (copies of
 the JAX package's) lay the reference's names onto a Flax tree, and the map
 above takes it from there, so both formats reach one set of names.
+`save_torch_weight` writes that schema: `convert_encoder_back` /
+`convert_decoder_back` (copies of the JAX package's) invert the two
+converters, so a model the port trained runs in the reference.
 """
 
 from __future__ import annotations
@@ -392,3 +395,140 @@ def load_torch_weight(path: str, args):
     enc = convert_encoder(blob["encoder"], len(e.npoint), irm_counts)
     dec = convert_decoder(blob["decoder"], int(args.decoder.attention_layers))
     return state_dicts_from_jax(enc, dec)
+
+
+# ----------------------------------------- the reference's .pth, written
+# The inverse of convert_encoder / convert_decoder (copies of the JAX
+# package's convert_encoder_back / convert_decoder_back): a Flax tree ->
+# the reference's state dicts, in the JAX writer's key order.
+
+def _get(tree: Mapping, path: str) -> np.ndarray:
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return np.asarray(node)
+
+
+def _inv_mlp_block(out, tree, torch_prefix, flax_prefix, n_layers, to_conv):
+    for i in range(n_layers):
+        ti = i * 3
+        out[f"{torch_prefix}.{ti}.weight"] = to_conv(
+            _get(tree, f"{flax_prefix}/dense{i}/kernel"))
+        try:
+            out[f"{torch_prefix}.{ti}.bias"] = _get(
+                tree, f"{flax_prefix}/dense{i}/bias")
+        except KeyError:
+            pass
+        out[f"{torch_prefix}.{ti + 1}.ln.weight"] = _get(
+            tree, f"{flax_prefix}/norm{i}/scale")
+        out[f"{torch_prefix}.{ti + 1}.ln.bias"] = _get(
+            tree, f"{flax_prefix}/norm{i}/bias")
+
+
+def _to_c1(k):  # Dense kernel (in, out) -> Conv1d weight (out, in, 1)
+    return np.asarray(k).T[:, :, None]
+
+
+def _to_c2(k):  # -> Conv2d weight (out, in, 1, 1)
+    return np.asarray(k).T[:, :, None, None]
+
+
+def convert_encoder_back(params: Mapping, npoint_count: int,
+                         irm_counts) -> dict:
+    """Flax encoder tree (no 'params' root) -> the reference's encoder
+    state dict (NumPy values), the inverse of `convert_encoder`."""
+    out: dict = {}
+    out["point_mlp0.weight"] = _to_c1(_get(params, "point_mlp0/kernel"))
+    out["point_mlp0.bias"] = _get(params, "point_mlp0/bias")
+    for i in range(npoint_count):
+        _inv_mlp_block(out, params, f"downsampler.{i}.sa.mlp",
+                       f"down{i}/sa/mlp", 1, _to_c2)
+        for j in range(irm_counts[i]):
+            _inv_mlp_block(out, params, f"downsampler.{i}.irm.{j}.la.mlp",
+                           f"down{i}/irm{j}/la/mlp", 1, _to_c2)
+            _inv_mlp_block(out, params, f"downsampler.{i}.irm.{j}.pw_conv",
+                           f"down{i}/irm{j}/pw_conv", 2, _to_c1)
+    i = 0
+    while f"up{i}" in params:
+        _inv_mlp_block(out, params, f"upsampler.{i}.mlp", f"up{i}/mlp", 2,
+                       _to_c1)
+        i += 1
+    return out
+
+
+def convert_decoder_back(params: Mapping, attention_layers: int = 3) -> dict:
+    """Flax decoder tree (no 'params' root) -> the reference's decoder
+    state dict (NumPy values), the inverse of `convert_decoder`."""
+    out: dict = {}
+    out["projection.weight"] = _to_c1(_get(params, "projection/kernel"))
+    out["projection.bias"] = _get(params, "projection/bias")
+    for i in range(attention_layers):
+        tb = f"descriptor_attention.{i}"
+        fb = f"attn{i}"
+        for attn in ("self_attn", "cross_attn"):
+            out[f"{tb}.{attn}.in_proj_weight"] = _get(
+                params, f"{fb}/{attn}/in_proj_kernel").T
+            out[f"{tb}.{attn}.in_proj_bias"] = _get(
+                params, f"{fb}/{attn}/in_proj_bias")
+            out[f"{tb}.{attn}.out_proj.weight"] = _get(
+                params, f"{fb}/{attn}/out_proj/kernel").T
+            out[f"{tb}.{attn}.out_proj.bias"] = _get(
+                params, f"{fb}/{attn}/out_proj/bias")
+        for ti, fn in ((0, "mlp0"), (2, "mlp1")):
+            out[f"{tb}.mlp.{ti}.weight"] = _get(params,
+                                                f"{fb}/{fn}/kernel").T
+            out[f"{tb}.mlp.{ti}.bias"] = _get(params, f"{fb}/{fn}/bias")
+        for norm in ("norm1", "norm2", "norm3"):
+            out[f"{tb}.{norm}.weight"] = _get(params, f"{fb}/{norm}/scale")
+            out[f"{tb}.{norm}.bias"] = _get(params, f"{fb}/{norm}/bias")
+    for tb, fb, names in (("similarity_head", "similarity_head",
+                           ("dense0", "dense1")),
+                          ("coarse_pairing_head", "coarse_pairing_head",
+                           ("dense0", "dense1")),
+                          ("loop_head.mlp", "loop_head", ("mlp0", "mlp1"))):
+        for ti, fn in zip((0, 2), names):
+            out[f"{tb}.{ti}.weight"] = _to_c1(_get(params,
+                                                   f"{fb}/{fn}/kernel"))
+            out[f"{tb}.{ti}.bias"] = _get(params, f"{fb}/{fn}/bias")
+    for ti, fn in ((0, "mlp0"), (2, "mlp1"), (4, "mlp2")):
+        out[f"offset_head.mlp.{ti}.weight"] = _to_c1(
+            _get(params, f"offset_head/{fn}/kernel"))
+        out[f"offset_head.mlp.{ti}.bias"] = _get(params,
+                                                 f"offset_head/{fn}/bias")
+    for name in ("downsample", "head"):
+        out[f"offset_head.{name}.weight"] = _to_c1(
+            _get(params, f"offset_head/{name}/kernel"))
+        out[f"offset_head.{name}.bias"] = _get(params,
+                                               f"offset_head/{name}/bias")
+    for ti, fn in ((0, "proj0"), (2, "proj1")):
+        out[f"loop_head.projection.{ti}.weight"] = _get(
+            params, f"loop_head/{fn}/kernel").T
+        out[f"loop_head.projection.{ti}.bias"] = _get(params,
+                                                      f"loop_head/{fn}/bias")
+    return out
+
+
+def _as_flax_tree(model) -> Mapping:
+    """A port module, its state dict, or a Flax tree (with or without the
+    'params' root) -> the Flax tree."""
+    if isinstance(model, torch.nn.Module):
+        model = model.state_dict()
+    if model and all(isinstance(v, torch.Tensor) for v in model.values()):
+        return flax_tree_from_state_dict(model)
+    return model["params"] if set(model) == {"params"} else model
+
+
+def save_torch_weight(path: str, enc, dec, args) -> None:
+    """Write a model in the reference's `.pth` schema ({'encoder': sd,
+    'decoder': sd} of CPU float32 tensors, reference:
+    pipeline/infer.py:63-65). `enc` / `dec`: the port's Encoder / Decoder,
+    their state dicts, or Flax trees. `load_torch_weight` reads it back."""
+    e = args.encoder
+    irm_counts = [len(r) - 1 for r in e.radius_list]
+    sds = (convert_encoder_back(_as_flax_tree(enc), len(e.npoint),
+                                irm_counts),
+           convert_decoder_back(_as_flax_tree(dec),
+                                int(args.decoder.attention_layers)))
+    enc_sd, dec_sd = ({k: torch.from_numpy(np.ascontiguousarray(v))
+                       for k, v in sd.items()} for sd in sds)
+    torch.save({"encoder": enc_sd, "decoder": dec_sd}, path)

@@ -18,6 +18,8 @@ ROOT = PORT.parent
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py",
            ROOT / "scripts" / "train_ddp_check.py",
            ROOT / "scripts" / "extract_multi_check.py",
+           ROOT / "scripts" / "train_full_size_torch.py",
+           ROOT / "scripts" / "full_size_card_run.py",
            ROOT / "tests" / "test_torch_ddp_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeppointmap_tpu")
 MODULES = sorted(
@@ -41,9 +43,10 @@ def test_modules_found():
                  "models.loss", "data.refined_se3", "parallel",
                  "parallel.ddp", "parallel.train_step", "pipeline.batching",
                  "pipeline.train_utils", "pipeline.trainer",
-                 "pipeline.train", "native", "parallel.sharded_extract"):
+                 "pipeline.train", "native", "parallel.sharded_extract",
+                 "pipeline.full_size"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 52
+    assert len(MODULES) >= 53
 
 
 def test_importing_every_module_loads_no_jax():

@@ -208,8 +208,8 @@ def test_cli_main_from_yaml(tmp_path):
     assert not (out / "Seq01").exists()
 
 
-def test_unported_modes_are_refused_before_any_side_effect(tmp_path,
-                                                           monkeypatch):
+def test_encoder_bf16_runs_through_both_entry_points(tmp_path,
+                                                     monkeypatch):
     """Nothing is refused any more: `tpu.encoder_bf16: true`, the last
     option the port refused, runs through both entry points' `main`. It
     reaches the encoder's gate, which gives float32 on the CPU, and every
