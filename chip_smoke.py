@@ -8,15 +8,20 @@ Phases, in order, each printing one JSON line:
   build   nvcc builds the four kernels from csrc/, all at once.
   k1      K1 (FPS) against its plain version at the encoder's five stage
           shapes with B = 1, 2, 3 and 4 (B > 1: the warm-up's batch and the
-          frames a training step encodes): identical indices;
+          frames a training step encodes): identical indices; the
+          demo-width model's four stages (2048 -> 512 -> 128 -> 64 -> 16,
+          a real demo scan at the first) at B = 1, 4 and 6 (DEMO_BATCHES);
           also on duplicated points (ties), on a scan that does not fill
           the cluster's partition, and with fewer valid points than k.
   k2      K2 (kNN + radius moments) against its plain version at every
           shape a path gives it (the encoder's grouping, level graphs and FP
           3-NN also at the training steps' B = 2, 3, 4) and at the
           sweep-reuse width (k = 41 with
-          moments): identical neighbour sets and dist2, cnt equal and
-          moments within one float32 ulp; also at k = 65 and 128, on
+          moments), and the demo-width model's (encoder_knn_shapes at
+          B = 1, 4, 6 with k 16 and 8, its information matrix's 1-NN):
+          identical neighbour sets and dist2, cnt equal and
+          moments within one float32 ulp; also at k = 65, 128 and 512
+          (each timed with its bound and library time), on
           duplicated points, and with fewer valid points than k.
   k3      K3 (radius moments over all points) against its plain version at
           (1, 16384, r 0.5 m), at a small odd shape and at the seams of its
@@ -130,6 +135,20 @@ Phases, in order, each printing one JSON line:
           and unaligned ATE, keyframes and loop edges (not gated). Launches
           counted from a reset before the two infer runs; K1 and K2 must
           launch.
+  demo    pipeline/demo.main (the demo-width recipe) on the card: its
+          60-frame world, DEMO_STEPS steps a stage, weights written and read
+          back into the demo model, SLAM around the loop; then the committed
+          artifacts/synthetic_demo through run_sequence on that world. The
+          ATE, keyframes and loop edges of each (not gated); K1 / K2
+          launches at the demo width required.
+  scale   pipeline/scale.run_scale(300, 100) with the committed demo
+          weights, bench.py's scale block: every frame mapped, no stage
+          error; loop_floor_ok, the ATE, scans/s a block and the growth of
+          the host RSS and of the card's allocated memory (not gated).
+  evaluate  the port's evaluation CLI (python -m
+          deeppointmap_tpu_torch.pipeline.evaluate --json) on slam_a's
+          trajectory against its ground truth, aligned and not: its JSON
+          equals utils/evaluation's numbers computed in process.
   bf16    `tpu.encoder_bf16` on the card: main's frames through an engine
           with the option off and on (ms a frame for each, the features'
           relative error; coordinates and validity must be identical),
@@ -233,6 +252,19 @@ TRAIN_TIMEOUT_S = 420
 #: the train phase's config file in the run's temporary directory (the
 #: bf16 phase steps on it too)
 TRAIN_YAML = "train.yaml"
+#: the demo-width model (pipeline/demo.py, artifacts/synthetic_demo): the
+#: frames one K1 / K2 launch holds -- 1 in SLAM, 4 in the pipelined
+#: warm-up's batch and in stage 2's steps, 6 in stage 1's (K 3 beside a
+#: map group of 3)
+DEMO_BATCHES = (1, 4, 6)
+DEMO_WEIGHTS = "artifacts/synthetic_demo/weights_final.msgpack"
+#: the demo phase: the recipe's own 60-frame world, cut to these steps a
+#: stage
+DEMO_FRAMES = 60
+DEMO_STEPS = (20, 10)
+#: the scale phase: bench.py's scale block (three drifting laps)
+SCALE_FRAMES = 300
+SCALE_BLOCK = 100
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -311,10 +343,6 @@ JAX_TPU_REFERENCE = dict(
     source="JAX package on a TPU, as recorded in BASELINE.md",
     ate_aligned_m=4.52, ate_aligned_no_loop_m=6.06, ma_merged_ate_m=3.25,
     ma_cross_agent_loop_edges="80-83")
-#: artifacts/full_size_occ_v2/render_meta.json
-WORLD = dict(n_clusters=1200, extent=120.0, pts_per_cluster=800)
-RENDER = dict(sensor_range=45.0, max_points=16384, occlusion_bins=512)
-TRAJ = dict(radius=50.0, frames_per_lap=96)
 
 
 #: with OUT_DIR, every emitted line is also appended to this file, so the
@@ -372,50 +400,6 @@ def timed_ms(torch, fn, reps: int, rounds: int = 3) -> float:
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
-
-
-def render_raw(syn, n_frames: int):
-    """n_frames raw-meter scans (lists of (n_i, 3) arrays) along the circle,
-    and their ground-truth poses."""
-    rng = np.random.default_rng(SEED)
-    world = syn.make_world(rng, **WORLD)
-    poses = syn.circle_trajectory(TRAJ["frames_per_lap"], TRAJ["radius"])
-    poses = [poses[i % len(poses)] for i in range(n_frames)]
-    return [syn.render_scan(world, p, rng=rng, **RENDER) for p in poses], \
-        poses
-
-
-def render_scans(syn, voxel_idx, raw=None, n_frames: int = N_FRAMES):
-    """The first n_frames scans voxelized at 0.3 m and padded:
-    (n_frames, N_PAD, 3) raw meters, validity and the ground-truth poses."""
-    scans, poses = raw if raw is not None else render_raw(syn, n_frames)
-    pts = np.zeros((n_frames, N_PAD, 3), np.float32)
-    valid = np.zeros((n_frames, N_PAD), bool)
-    for i in range(n_frames):
-        xyz = scans[i][voxel_idx(scans[i], 0.3, "first")][:N_PAD]
-        pts[i, :len(xyz)] = xyz
-        valid[i, :len(xyz)] = True
-    return pts, valid, poses[:n_frames]
-
-
-def write_bins(scans, root: str) -> None:
-    """Scans as KITTI velodyne files (N, 4) float32 x/y/z/intensity."""
-    os.makedirs(root, exist_ok=True)
-    for i, xyz in enumerate(scans):
-        np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)],
-                       1).astype(np.float32).tofile(
-            os.path.join(root, f"{i:06d}.bin"))
-
-
-def write_npz(scans, poses, root: str) -> str:
-    """Scans with their ground-truth poses as an npz sequence, the layout
-    of data/synthetic.write_npz_sequence (which renders them itself)."""
-    os.makedirs(root, exist_ok=True)
-    for i, (xyz, pose) in enumerate(zip(scans, poses)):
-        np.savez(os.path.join(root, f"{i}.npz"), lidar_pcd=xyz,
-                 ego_rotation=pose[:3, :3].astype(np.float32),
-                 ego_translation=pose[:3, 3:].astype(np.float32))
-    return root
 
 
 def split_range(total: int, n_agents: int, index: int) -> tuple:
@@ -598,9 +582,67 @@ def knn_inputs(torch, dev, scan_pts, scan_valid, n, s, radius, seed):
             t(np.asarray(centers, np.float32)))
 
 
+def encoder_knn_shapes(e, n_pad: int) -> list:
+    """K2's (N, S, k, radius) in the encoder of config tree `e`: the first
+    stage's grouping, one shared self-kNN a level (LEVEL_GRAPH_REUSE: the
+    widest k the level and the next stage's grouping need) and the
+    FeaturePropagation 3-NN."""
+    npoint, n_lv = e.npoint, len(e.npoint)
+    shapes = [(n_pad, npoint[0], e.nsample_list[0][0], 0.0)]
+    for i in range(n_lv):
+        own = max(e.nsample_list[i][1:], default=0)
+        nxt = e.nsample_list[i + 1][0] if i + 1 < n_lv else 0
+        shapes.append((npoint[i], npoint[i], max(own, nxt), 0.0))
+    for i in range(e.upsample_layers):
+        shapes.append((npoint[n_lv - 1 - i], npoint[n_lv - 2 - i], 3, 0.0))
+    return shapes
+
+
+def demo_scans(syn, n_frames: int, n_pad: int):
+    """The demo world's first scans (pipeline/demo.write_world: world seed
+    0, a 25 m circle of DEMO_FRAMES frames, 2000 points a scan), normalized
+    by 60 m and padded: (n_frames, n_pad, 3) and validity."""
+    rng = np.random.default_rng(0)
+    world = syn.make_world(rng)
+    poses = syn.circle_trajectory(DEMO_FRAMES, radius=25.0)
+    pts = np.zeros((n_frames, n_pad, 3), np.float32)
+    valid = np.zeros((n_frames, n_pad), bool)
+    for i in range(n_frames):
+        xyz = syn.render_scan(world, poses[i], rng=rng, max_points=2000)
+        pts[i, :len(xyz)] = xyz / 60.0
+        valid[i, :len(xyz)] = True
+    return pts, valid
+
+
+def demo_knn_inputs(torch, dev, scans, valid, b, n, s, seed):
+    """Inputs at one demo-width K2 shape: B of the normalized demo scans
+    where N is the pad, else random subsets of their valid points; the
+    centers are the points themselves (S = N) or points plus noise."""
+    g = np.random.default_rng(seed)
+    out = [[], [], []]
+    for i in range(b):
+        if n == scans.shape[1]:
+            pts, v = scans[i], valid[i]
+        else:
+            keep = g.choice(np.nonzero(valid[i])[0], n, replace=False)
+            pts, v = scans[i][keep], np.ones(n, bool)
+        if s == n:
+            centers = pts
+        else:
+            ci = g.choice(np.nonzero(v)[0], s, replace=s > v.sum())
+            centers = pts[ci] + g.normal(0, 0.002, (s, 3))
+        for lst, x in zip(out, (pts, v, centers)):
+            lst.append(x)
+    t = lambda xs: torch.from_numpy(np.ascontiguousarray(
+        np.stack(xs))).to(dev)
+    return (t([x.astype(np.float32) for x in out[0]]), t(out[1]),
+            t([x.astype(np.float32) for x in out[2]]))
+
+
 def odd_knn_cases(torch, dev, scan_pts, scan_valid):
     """K2 off the paths' shapes: (name, points, valid, centers, k, radius)
-    at k = 65 and 128 (beyond the earlier limit of 64), on points that all
+    at k = 65, 128 (beyond the earlier limit of 64) and 512 (KNN_MAX_K),
+    on points that all
     occur twice (exact distance ties), and with fewer valid points than k,
     the last two with moments and a center count that is no multiple of a
     warp's four."""
@@ -612,6 +654,7 @@ def odd_knn_cases(torch, dev, scan_pts, scan_valid):
     few_v[0, g.permutation(3000)[:20]] = True
     t = lambda x: torch.from_numpy(x).to(dev)
     return [("k65", *wide, 65, 0.0), ("k128", *wide, 128, 0.0),
+            ("k512", *wide, 512, 0.0),
             ("ties", t(pts), t(np.ones((1, 3000), bool)), t(pts[:, :1001]),
              40, 0.3),
             ("few_valid", t(pts), t(few_v), t(pts[:, :1001]), 40, 0.3)]
@@ -1291,9 +1334,10 @@ def native_phase(native, voxel, syn, raw_scans, slam_a_calls, smi) -> dict:
     of each: median of 5) on slam_a's first raw scans and a KITTI-size
     scan of the same world; slam_a must have called the native library
     once a frame."""
-    rng = np.random.default_rng(SEED)
-    world = syn.make_world(rng, **WORLD)
-    pose = syn.circle_trajectory(TRAJ["frames_per_lap"], TRAJ["radius"])[0]
+    rng = np.random.default_rng(syn.STREAM_SEED)
+    world = syn.make_world(rng, **syn.STREAM_WORLD)
+    pose = syn.circle_trajectory(syn.STREAM_TRAJ["frames_per_lap"],
+                                 syn.STREAM_TRAJ["radius"])[0]
     kitti = syn.render_scan(world, pose, sensor_range=60.0,
                             max_points=KITTI_POINTS, rng=rng)
     clouds = {f"slam_a_{i}": raw_scans[i] for i in range(NATIVE_FRAMES)}
@@ -1801,6 +1845,141 @@ def export_phase(torch, kernels, entries, launched, smi, tmp,
         launches=launches, seconds=time.perf_counter() - t_phase)
 
 
+def demo_phase(torch, kernels, entries, launched, smi, tmp,
+               device="cuda") -> dict:
+    """pipeline/demo.main on the card (the recipe's world, DEMO_STEPS steps
+    a stage), its weights read back, then the committed
+    artifacts/synthetic_demo through run_sequence on the same world:
+    frames, keyframes, loop edges and the aligned ATE of each (not gated).
+    Each run's launches are counted from a reset before it; K1 and K2 must
+    launch at the demo width (the recipe's steps and SLAM, the artifact's
+    SLAM)."""
+    from deeppointmap_tpu_torch.models.decoder import Decoder
+    from deeppointmap_tpu_torch.models.encoder import Encoder
+    from deeppointmap_tpu_torch.ops import neighbors, sampling
+    from deeppointmap_tpu_torch.pipeline import demo
+    from deeppointmap_tpu_torch.pipeline.common import load_weights
+
+    t_phase = time.perf_counter()
+    root, out = (os.path.join(tmp, d) for d in ("demo_world", "demo_out"))
+    kernels.reset_launches()
+    res = demo.main(["--steps", str(DEMO_STEPS[0]), "--loop_steps",
+                     str(DEMO_STEPS[1]), "--frames", str(DEMO_FRAMES),
+                     "--root", root, "--out", out, "--device", device])
+    launches = launches_of(kernels, entries, "demo_recipe", launched)
+    args = demo.demo_args(root, out)
+    e, pad = args.encoder, int(args.tpu.encoder_points)
+    at_width = {
+        "fps": kernels.FPS.shapes[sampling.fps_shape(1, pad, e.npoint[0])],
+        "knn": kernels.KNN.shapes[neighbors.knn_shape(
+            1, pad, e.npoint[0], e.nsample_list[0][0], 0.0)],
+        "fps_stage1": kernels.FPS.shapes[sampling.fps_shape(
+            max(DEMO_BATCHES), pad, e.npoint[0])]}
+    if min(at_width.values()) <= 0:
+        raise AssertionError(f"demo: K1 / K2 idle at the demo width: "
+                             f"{at_width} {launches}")
+    back = load_weights(args, res["weights"])
+    for sd, model in zip(back, (Encoder.from_config(args),
+                                Decoder.from_config(args))):
+        want = model.state_dict()
+        if sd.keys() != want.keys() or not all(
+                sd[k].shape == want[k].shape
+                and bool(torch.isfinite(sd[k]).all()) for k in want):
+            raise AssertionError("demo: the written weights do not read "
+                                 "back into the demo model")
+    kernels.reset_launches()
+    artifact = demo.run_slam(args, os.path.join(REPO, DEMO_WEIGHTS),
+                             os.path.join(tmp, "demo_artifact"), device)
+    launches_a = launches_of(kernels, entries, "demo_artifact", launched)
+    require(launches_a, ("fps", "knn"), "demo_artifact")
+    if res["slam"]["frames"] + artifact["frames"] <= 0:
+        raise AssertionError("demo: no frame in either graph")
+    return dict(phase="demo", card=smi, frames=DEMO_FRAMES,
+                steps=list(DEMO_STEPS), train=res["train"],
+                trained=res["slam"], artifact=artifact,
+                launches=launches, launches_at_demo_width=at_width,
+                artifact_launches=launches_a,
+                seconds=time.perf_counter() - t_phase)
+
+
+def scale_phase(torch, kernels, entries, launched, smi, tmp,
+                device="cuda") -> dict:
+    """pipeline/scale.run_scale(SCALE_FRAMES, SCALE_BLOCK) with the
+    committed demo weights, as bench.py's scale block: every frame mapped,
+    no stage error (MT_Wait raises on one); loop_floor_ok, the ATE, scans/s
+    and the growth of the host RSS and of the card's allocated memory are
+    printed, not gated."""
+    from deeppointmap_tpu_torch.pipeline.scale import run_scale
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    sm = run_scale(frames=SCALE_FRAMES, block=SCALE_BLOCK,
+                   root=os.path.join(tmp, "scale_world"),
+                   out=os.path.join(tmp, "scale_out"), quiet=True,
+                   device=device)
+    launches = launches_of(kernels, entries, "scale", launched)
+    require(launches, ("fps", "knn"), "scale")
+    if sm["frames_streamed"] != SCALE_FRAMES \
+            or sm["frames_mapped"] != SCALE_FRAMES - 1:
+        raise AssertionError(f"scale: {sm['frames_mapped']} of "
+                             f"{sm['frames_streamed']} frames mapped")
+    keep = ("frames", "keyframes", "loop_edges", "ate_m", "loop_floor_ok",
+            "loop_gate_stats", "scans_per_sec_first_block",
+            "scans_per_sec_last_block", "rss_growth_mb", "device_growth_mb",
+            "device_max_mb", "blocks")
+    return dict(phase="scale", card=smi, **{k: sm[k] for k in keep},
+                launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
+def evaluate_phase(out_a: str, gt_poses, tmp: str, smi) -> dict:
+    """The port's evaluation CLI (python -m
+    deeppointmap_tpu_torch.pipeline.evaluate --json) on slam_a's
+    trajectory.allframes.txt against its ground truth (relative to frame 0,
+    KITTI rows), aligned with --delta 1 and unaligned with --delta 3: each
+    JSON must equal utils/evaluation's numbers computed here on the same
+    files, with the CLI's rounding."""
+    from deeppointmap_tpu_torch.utils import evaluation
+
+    t_phase = time.perf_counter()
+    pred_path = os.path.join(out_a, "trajectory.allframes.txt")
+    gt_path = os.path.join(tmp, "slam_a_gt.txt")
+    gt = np.stack([np.linalg.inv(gt_poses[0]) @ p for p in gt_poses])
+    np.savetxt(gt_path, gt[:, :3, :].reshape(len(gt), 12))
+    pred = evaluation.load_kitti_trajectory(pred_path)
+    want_gt = evaluation.load_kitti_trajectory(gt_path)
+    n = min(len(pred), len(want_gt))
+    pred, want_gt = pred[:n], want_gt[:n]
+    runs = {}
+    for delta, align in ((1, True), (3, False)):
+        flags = ["--delta", str(delta)] + ([] if align else ["--no-align"])
+        out = subprocess.run(
+            [sys.executable, "-m", "deeppointmap_tpu_torch.pipeline.evaluate",
+             pred_path, gt_path, "--json", *flags], cwd=REPO,
+            capture_output=True, text=True, check=True).stdout
+        got = json.loads(out.strip().splitlines()[-1])
+        rpe_t, rpe_r = evaluation.rpe(pred, want_gt, delta=delta)
+        kt, kr = evaluation.kitti_odometry_errors(pred, want_gt)
+        want = {
+            "frames": n,
+            "path_length_m": round(float(np.sum(np.linalg.norm(np.diff(
+                want_gt[:, :3, 3], axis=0), axis=1))), 2),
+            "ate_rmse_m": round(evaluation.ate_rmse(pred, want_gt,
+                                                    align=align), 4),
+            "ate_rmse_unaligned_m": round(evaluation.ate_rmse(
+                pred, want_gt, align=False), 4),
+            f"rpe_trans_m_delta{delta}": round(rpe_t, 4),
+            f"rpe_rot_deg_delta{delta}": round(rpe_r, 4),
+            "kitti_trans_err_pct": None if np.isnan(kt) else round(kt, 3),
+            "kitti_rot_err_deg_per_100m": None if np.isnan(kr)
+            else round(kr, 4)}
+        if got != want:
+            raise AssertionError(f"evaluate CLI {flags}: {got} != {want}")
+        runs[" ".join(flags)] = got
+    return dict(phase="evaluate", card=smi, pred="slam_a allframes",
+                runs=runs, seconds=time.perf_counter() - t_phase)
+
+
 def main(out_dir: str = "") -> int:
     """Run every phase; with `out_dir`, also write the kernel entries
     there as chip_smoke.json and every emitted line to chip_smoke.log."""
@@ -1827,6 +2006,7 @@ def main(out_dir: str = "") -> int:
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.ops import neighbors, normals, sampling, sweep
     from deeppointmap_tpu_torch.pipeline import infer
+    from deeppointmap_tpu_torch.pipeline.demo import demo_args
     from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 
     kernels.strict_matmuls()
@@ -1853,8 +2033,8 @@ def main(out_dir: str = "") -> int:
     CONFIG["slam_system"].update(SYNTHETIC_GATES)
     args = config_from_dict(CONFIG, multi_thread=False)
     # the first SLAM_A_FRAMES of the JAX package's two-lap accuracy world
-    raw = render_raw(syn, ACC_FRAMES)
-    pts, valid, poses = render_scans(syn, voxel_downsample_indices, raw)
+    raw = syn.render_stream(ACC_FRAMES)
+    pts, valid, poses = syn.pad_stream(raw, N_FRAMES, N_PAD)
     pre = PreprocessConfig.from_transforms(args.transforms)
 
     # ---------------------------------------------------------- K1, K2
@@ -1888,6 +2068,22 @@ def main(out_dir: str = "") -> int:
             entries.append(check_fps(
                 torch, sampling, torch.randn(b, n, 3, device=dev) * 0.3,
                 torch.ones(b, n, dtype=torch.bool, device=dev), k))
+    # the demo-width model (demo, scale): a real scan at the first stage
+    dargs = demo_args("", "")
+    d_pad, d_np = int(dargs.tpu.encoder_points), list(dargs.encoder.npoint)
+    d_pts, d_valid = demo_scans(syn, max(DEMO_BATCHES), d_pad)
+    d_in = [d_pad] + d_np[:-1]
+    for b in DEMO_BATCHES:
+        entries.append(check_fps(torch, sampling,
+                                 torch.from_numpy(d_pts[:b]).to(dev),
+                                 torch.from_numpy(d_valid[:b]).to(dev),
+                                 d_np[0]))
+        for n, k in list(zip(d_in, d_np))[1:]:
+            # 64 -> 16 is also a full-width stage, checked above
+            if [b, n, k] not in [e["shape"] for e in entries]:
+                entries.append(check_fps(
+                    torch, sampling, torch.randn(b, n, 3, device=dev) * 0.3,
+                    torch.ones(b, n, dtype=torch.bool, device=dev), k))
     odd = {name: check_fps(torch, sampling, xs, vs, k)["ms"]
            for name, xs, vs, k in odd_fps_cases(torch, dev)}
     emit(dict(phase="k1", card=smi, odd_cases_ms=odd, shapes=[
@@ -1902,15 +2098,8 @@ def main(out_dir: str = "") -> int:
     knn_shapes = [(N_PAD, N_PAD, k_sweep, pre.normals_radius),
                   (N_PAD, N_PAD, k_sweep, 0.0),
                   # what `tpu.sweep_reuse` alone runs (no path here does)
-                  (N_PAD, N_PAD, k_reuse, pre.normals_radius),
-                  (N_PAD, npoint[0], e.nsample_list[0][0], 0.0)]
-    for i in range(n_lv):
-        own = max(e.nsample_list[i][1:], default=0)
-        nxt = e.nsample_list[i + 1][0] if i + 1 < n_lv else 0
-        knn_shapes.append((npoint[i], npoint[i], max(own, nxt), 0.0))
-    for i in range(e.upsample_layers):
-        knn_shapes.append((npoint[n_lv - 1 - i], npoint[n_lv - 2 - i], 3,
-                           0.0))
+                  (N_PAD, N_PAD, k_reuse, pre.normals_radius)]
+    knn_shapes += encoder_knn_shapes(e, N_PAD)
     # the warm-up's batch of four runs the level graphs and FP at B = 4;
     # training runs the stage-1 grouping, the level graphs and FP at the
     # frames of a step (TRAIN_BATCHES)
@@ -1934,10 +2123,23 @@ def main(out_dir: str = "") -> int:
         inputs = [torch.cat(x) for x in zip(*parts)]
         k2.append(check_knn(torch, neighbors, inputs[0], inputs[1],
                             inputs[2], k, radius))
-    odd = {name: check_knn(torch, neighbors, p, v, c, k, radius)["ms"]
+    # the demo-width model: its encoder at every batch, the information
+    # matrix's 1-NN at its stride (no preprocess sweep: no filter)
+    d_shapes = [(b, *sh) for b in DEMO_BATCHES
+                for sh in encoder_knn_shapes(dargs.encoder, d_pad)]
+    d_shapes.append((1, d_pad, -(-d_pad // int(dargs.tpu.infomat_stride)),
+                     1, 0.0))
+    for j, (b, n, s, k, radius) in enumerate(d_shapes):
+        if [b, n, s, k, radius] in [e["shape"] for e in k2]:
+            continue   # FP 16 -> 64 is a full-width shape too
+        k2.append(check_knn(torch, neighbors, *demo_knn_inputs(
+            torch, dev, d_pts, d_valid, b, n, s, 500 + j), k, radius))
+    odd = {name: {key: en[key] for key in ("ms", "host_us", "plain_ms",
+                                           "bound_ms", "library_ms")}
            for name, p, v, c, k, radius in odd_knn_cases(torch, dev, pts[0],
-                                                         valid[0])}
-    emit(dict(phase="k2", card=smi, odd_cases_ms=odd, shapes=[
+                                                         valid[0])
+           for en in [check_knn(torch, neighbors, p, v, c, k, radius)]}
+    emit(dict(phase="k2", card=smi, odd_cases=odd, shapes=[
         {key: e[key] for key in ("shape", "max_abs_err", "ms", "host_us",
                                  "plain_ms", "library_ms")} for e in k2]))
     entries += k2
@@ -2019,8 +2221,7 @@ def main(out_dir: str = "") -> int:
               launches=launches))
 
     # ------------------------------------------- offline batch extraction
-    pts_s, valid_s, _ = render_scans(syn, voxel_downsample_indices, raw,
-                                     n_frames=SHARDED_SCANS)
+    pts_s, valid_s, _ = syn.pad_stream(raw, SHARDED_SCANS, N_PAD)
     emit(sharded_phase(torch, kernels, entries, launched, smi, pts_s,
                        valid_s, enc_sd, dec_sd, pre))
 
@@ -2028,11 +2229,11 @@ def main(out_dir: str = "") -> int:
     with tempfile.TemporaryDirectory() as tmp:
         seq_a, seq_b, seq_c, seq_d, seq_h = (os.path.join(tmp, d)
                                              for d in "abcdh")
-        write_bins(raw[0][:SLAM_A_FRAMES], seq_a)
-        write_bins(raw[0][:SLAM_B_FRAMES], seq_b)
-        write_bins(raw[0][:CPU_FRAMES], seq_c)
-        write_bins(raw[0][SLAM_B_FRAMES:2 * SLAM_B_FRAMES], seq_d)
-        write_bins(raw[0][:HOST_FRAMES], seq_h)
+        syn.write_bins(raw[0][:SLAM_A_FRAMES], seq_a)
+        syn.write_bins(raw[0][:SLAM_B_FRAMES], seq_b)
+        syn.write_bins(raw[0][:CPU_FRAMES], seq_c)
+        syn.write_bins(raw[0][SLAM_B_FRAMES:2 * SLAM_B_FRAMES], seq_d)
+        syn.write_bins(raw[0][:HOST_FRAMES], seq_h)
         first_file = os.path.join(seq_a, "000001.bin")
 
         # slam_a: sweep reuse on, K4 for the filters and stage 1
@@ -2285,7 +2486,8 @@ def main(out_dir: str = "") -> int:
 
         # accuracy: the JAX package's accuracy block on the port
         gt = np.stack(raw[1])
-        acc_dir = write_npz(raw[0], raw[1], os.path.join(tmp, "acc_world"))
+        acc_dir = syn.write_npz(raw[0], raw[1],
+                                os.path.join(tmp, "acc_world"))
         acc_cfg = dict(transforms=EVAL_TRANSFORMS, encoder=CONFIG["encoder"],
                        decoder=CONFIG["decoder"], loss=CONFIG["loss"],
                        slam_system=EVAL_SLAM, tpu=dict(robust_register=True))
@@ -2377,8 +2579,8 @@ def main(out_dir: str = "") -> int:
 
         # ma_tcp: three agent worker processes on the card, at a reduced
         # depth, against an in-process run over the same frames
-        tcp_dir = write_npz(raw[0][:TCP_FRAMES], raw[1][:TCP_FRAMES],
-                            os.path.join(tmp, "tcp_world"))
+        tcp_dir = syn.write_npz(raw[0][:TCP_FRAMES], raw[1][:TCP_FRAMES],
+                                os.path.join(tmp, "tcp_world"))
         tcp = {t: ma_run(tcp_dir, f"ma_{t}_{TCP_FRAMES}", t)
                for t in ("tcp", "inproc")}
         steps = {t: [np.loadtxt(os.path.join(
@@ -2441,6 +2643,12 @@ def main(out_dir: str = "") -> int:
 
         # ----------------------------------------------------- export
         emit(export_phase(torch, kernels, entries, launched, smi, tmp))
+
+        # ------------------------------------------ demo, scale, evaluate
+        emit(demo_phase(torch, kernels, entries, launched, smi, tmp))
+        emit(scale_phase(torch, kernels, entries, launched, smi, tmp))
+        emit(evaluate_phase(os.path.join(tmp, "out_a"),
+                            raw[1][:SLAM_A_FRAMES], tmp, smi))
 
         # ------------------------------------------------------- bf16
         cfg_bf = copy.deepcopy(CONFIG)

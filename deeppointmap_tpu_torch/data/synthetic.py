@@ -129,3 +129,63 @@ def write_npz_sequence(root: str, world: np.ndarray,
                  ego_rotation=pose[:3, :3].astype(np.float32),
                  ego_translation=pose[:3, 3:].astype(np.float32))
     return agent_dir
+
+
+# The occluded stream that chip_smoke.py and bench_torch.py drive: the world,
+# render and lap of artifacts/full_size_occ_v2/render_meta.json (the JAX
+# package's accuracy world, scripts/train_full_size.py build_eval_world),
+# seed 0, rendered in memory and written as KITTI .bin files or npz scans.
+STREAM_SEED = 0
+STREAM_WORLD = dict(n_clusters=1200, extent=120.0, pts_per_cluster=800)
+STREAM_RENDER = dict(sensor_range=45.0, max_points=16384, occlusion_bins=512)
+STREAM_TRAJ = dict(radius=50.0, frames_per_lap=96)
+
+
+def render_stream(n_frames: int):
+    """n_frames raw-meter scans (a list of (n_i, 3) arrays) along the
+    stream's circle, lap after lap, and their ground-truth poses."""
+    rng = np.random.default_rng(STREAM_SEED)
+    world = make_world(rng, **STREAM_WORLD)
+    lap = circle_trajectory(STREAM_TRAJ["frames_per_lap"],
+                            STREAM_TRAJ["radius"])
+    poses = [lap[i % len(lap)] for i in range(n_frames)]
+    return [render_scan(world, p, rng=rng, **STREAM_RENDER)
+            for p in poses], poses
+
+
+def pad_stream(raw, n_frames: int, n_pad: int = 16384):
+    """The first n_frames scans of `raw` (render_stream's pair) voxelized
+    at 0.3 m ('first' retention) and padded: (n_frames, n_pad, 3) raw meters,
+    validity (n_frames, n_pad) and the ground-truth poses."""
+    from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
+
+    scans, poses = raw
+    pts = np.zeros((n_frames, n_pad, 3), np.float32)
+    valid = np.zeros((n_frames, n_pad), bool)
+    for i in range(n_frames):
+        keep = voxel_downsample_indices(scans[i], 0.3, "first")
+        xyz = scans[i][keep][:n_pad]
+        pts[i, :len(xyz)] = xyz
+        valid[i, :len(xyz)] = True
+    return pts, valid, poses[:n_frames]
+
+
+def write_bins(scans, root: str) -> str:
+    """Scans as KITTI velodyne files (N, 4) float32 x/y/z/intensity."""
+    os.makedirs(root, exist_ok=True)
+    for i, xyz in enumerate(scans):
+        np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)],
+                       1).astype(np.float32).tofile(
+            os.path.join(root, f"{i:06d}.bin"))
+    return root
+
+
+def write_npz(scans, poses, root: str) -> str:
+    """Scans with their ground-truth poses as an npz sequence, the layout
+    of write_npz_sequence (which renders them itself)."""
+    os.makedirs(root, exist_ok=True)
+    for i, (xyz, pose) in enumerate(zip(scans, poses)):
+        np.savez(os.path.join(root, f"{i}.npz"), lidar_pcd=xyz,
+                 ego_rotation=pose[:3, :3].astype(np.float32),
+                 ego_translation=pose[:3, 3:].astype(np.float32))
+    return root

@@ -17,6 +17,17 @@ from deeppointmap_tpu_torch.models.weights import (flax_tree_from_state_dict,
 logger = logging.getLogger(__name__)
 
 
+def require_device(device) -> str:
+    """`device` as given, after checking that it exists: an entry point
+    asked for a CUDA device on a machine without one raises; it never
+    carries on on the CPU (`--device cpu` asks for that)."""
+    device = str(device)
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
+                           f"available (pass --device cpu for the CPU)")
+    return device
+
+
 def init_params(args, generator: torch.Generator):
     """Randomly initialized encoder / decoder state dicts with the
     configured shapes, every parameter drawn anew from `generator` (normal,

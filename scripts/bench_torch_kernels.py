@@ -56,11 +56,18 @@ def measure(check: bool) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch_kernels: no CUDA device")
     sys.path.append(str(REPO))          # chip_smoke's helpers, after the root
+    import importlib.util
+
     import chip_smoke as cs
     from deeppointmap_tpu_torch import kernels
-    from deeppointmap_tpu_torch.data import synthetic as syn
-    from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
     from deeppointmap_tpu_torch.ops import neighbors, sampling, sweep
+
+    # this checkout's stream module, whatever the root (an older root may
+    # predate it; the draws are the same)
+    spec = importlib.util.spec_from_file_location(
+        "stream_synthetic", REPO / "deeppointmap_tpu_torch/data/synthetic.py")
+    syn = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(syn)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -69,7 +76,7 @@ def measure(check: bool) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kernels.build_all()
-    pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices, n_frames=4)
+    pts, valid, _ = syn.pad_stream(syn.render_stream(4), 4, cs.N_PAD)
     rows = []
     for b, n, k in FPS_SHAPES:
         if n == cs.N_PAD:

@@ -56,7 +56,6 @@ def main(argv=None) -> int:
     from deeppointmap_tpu_torch.config import config_from_dict
     from deeppointmap_tpu_torch.data import synthetic as syn
     from deeppointmap_tpu_torch.data.preprocess import PreprocessConfig
-    from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
     from deeppointmap_tpu_torch.models.encoder import Encoder
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.parallel.sharded_extract import (
@@ -66,9 +65,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    raw = cs.render_raw(syn, opt.scans)
-    pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices, raw,
-                                    n_frames=opt.scans)
+    pts, valid, _ = syn.pad_stream(syn.render_stream(opt.scans), opt.scans,
+                                   cs.N_PAD)
     cfg = copy.deepcopy(cs.CONFIG)
     cfg["tpu"]["upload_quant"] = "none"
     args = config_from_dict(cfg, multi_thread=False)

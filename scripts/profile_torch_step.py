@@ -62,7 +62,6 @@ def main() -> int:
     from deeppointmap_tpu_torch.config import config_from_dict
     from deeppointmap_tpu_torch.data import synthetic as syn
     from deeppointmap_tpu_torch.data.preprocess import PreprocessConfig
-    from deeppointmap_tpu_torch.data.voxel import voxel_downsample_indices
     from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
     from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 
@@ -82,7 +81,8 @@ def main() -> int:
 
     if opts.path == "engine":
         args = config_from_dict(cs.CONFIG)
-        pts, valid, _ = cs.render_scans(syn, voxel_downsample_indices)
+        pts, valid, _ = syn.pad_stream(syn.render_stream(cs.N_FRAMES),
+                                       cs.N_FRAMES, cs.N_PAD)
         engine = InferenceEngine(
             args, *load_msgpack_weights(cs.WEIGHTS),
             preprocess_cfg=PreprocessConfig.from_transforms(args.transforms),
@@ -143,7 +143,7 @@ def main() -> int:
         normals.USE_FUSED_SWEEP = True
         n_frames = opts.warm + steps
         tmp = tempfile.TemporaryDirectory()
-        cs.write_bins(cs.render_raw(syn, n_frames)[0], tmp.name + "/seq")
+        syn.write_bins(syn.render_stream(n_frames)[0], tmp.name + "/seq")
         engine = InferenceEngine(
             args, *load_msgpack_weights(cs.WEIGHTS),
             preprocess_cfg=infer.device_preprocess_config(args),

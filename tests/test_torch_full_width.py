@@ -29,12 +29,11 @@ import torch
 import chip_smoke as cs
 from deeppointmap_tpu.config import Config as JConfig
 from deeppointmap_tpu.config import TPU_DEFAULTS as J_TPU_DEFAULTS
-from deeppointmap_tpu.data import synthetic as jsyn
-from deeppointmap_tpu.data.voxel import voxel_downsample_indices as jvox
 from deeppointmap_tpu.pipeline import infer as jinfer
 from deeppointmap_tpu.pipeline.common import load_weights
 from deeppointmap_tpu.slam.engine import InferenceEngine as JEngine
 from deeppointmap_tpu_torch.config import config_from_dict
+from deeppointmap_tpu_torch.data import synthetic as tsyn
 from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
 from deeppointmap_tpu_torch.pipeline import infer as tinfer
 from deeppointmap_tpu_torch.slam.engine import InferenceEngine
@@ -50,7 +49,7 @@ def pair():
     cfg = copy.deepcopy(cs.CONFIG)
     cfg["tpu"].update(bf16=False, upload_quant="none",
                       neighbor_grade="exact", filter_grade="exact")
-    pts, valid, _ = cs.render_scans(jsyn, jvox, n_frames=2)
+    pts, valid, _ = tsyn.pad_stream(tsyn.render_stream(2), 2)
     jargs = JConfig(cfg)
     jargs.tpu = JConfig({**J_TPU_DEFAULTS, **cfg["tpu"]})
     targs = config_from_dict(cfg)

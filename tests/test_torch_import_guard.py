@@ -20,6 +20,11 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py",
            ROOT / "scripts" / "extract_multi_check.py",
            ROOT / "scripts" / "train_full_size_torch.py",
            ROOT / "scripts" / "full_size_card_run.py",
+           ROOT / "scripts" / "bench_torch_kernels.py",
+           ROOT / "scripts" / "train_synthetic_demo_torch.py",
+           ROOT / "scripts" / "scale_run_torch.py",
+           ROOT / "scripts" / "evaluate_torch.py",
+           ROOT / "bench_torch.py",
            ROOT / "tests" / "test_torch_ddp_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeppointmap_tpu")
 MODULES = sorted(
@@ -44,9 +49,10 @@ def test_modules_found():
                  "parallel.ddp", "parallel.train_step", "pipeline.batching",
                  "pipeline.train_utils", "pipeline.trainer",
                  "pipeline.train", "native", "parallel.sharded_extract",
-                 "pipeline.full_size"):
+                 "pipeline.full_size", "pipeline.demo", "pipeline.evaluate",
+                 "pipeline.scale"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 53
+    assert len(MODULES) >= 56
 
 
 def test_importing_every_module_loads_no_jax():

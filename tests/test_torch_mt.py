@@ -11,6 +11,7 @@ fires; on a harsh stream (~3.3 m a frame) it fires. A crashed stage makes
 MT_Wait raise, naming the stage, instead of hanging.
 """
 
+import json
 import os
 import threading
 
@@ -20,11 +21,12 @@ import torch
 
 from deeppointmap_tpu.slam.system import SlamSystem as JSlam
 from deeppointmap_tpu.utils.evaluation import ate_rmse
-from deeppointmap_tpu_torch.config import config_from_dict
+from deeppointmap_tpu_torch.config import TPU_DEFAULTS, config_from_dict
 from deeppointmap_tpu_torch.data import synthetic as syn
 from deeppointmap_tpu_torch.data.dataset import BasicAgent
 from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
 from deeppointmap_tpu_torch.pipeline import infer
+from deeppointmap_tpu_torch.pipeline.demo import demo_args
 from deeppointmap_tpu_torch.slam.engine import InferenceEngine
 from deeppointmap_tpu_torch.slam.system import SlamSystem
 from deeppointmap_tpu_torch.utils import se3 as se3m
@@ -40,42 +42,19 @@ JOIN_S = 240
 
 
 def demo_config(root: str, out: str) -> dict:
-    """scripts/train_synthetic_demo.demo_args as a dict (the model of the
-    synthetic_demo weights), loop closure and global optimization off, as
-    in tests/test_mt_long_stream.py."""
-    return dict(
-        infer_src=[root], infer_tgt=out, multi_thread=False, weight="",
-        transforms={"DistanceSample": {"min_dis": 0.0, "max_dis": 60.0},
-                    "CoordinatesNormalization": {"ratio": 60.0},
-                    "ToTensor": {"padding_to": -1}},
-        encoder=dict(npoint=[512, 128, 64, 16],
-                     radius_list=[[0.03, 0.06], [0.06, 0.12], [0.12, 0.25],
-                                  [0.25, 0.5]],
-                     nsample_list=[[16, 16], [16, 16], [16, 16], [8, 8]],
-                     in_channel=3, out_channel=64, width=16, expansion=4,
-                     upsample_layers=2, sample=[{"type": "fps"}] * 4,
-                     norm="LN", bias=True),
-        decoder=dict(in_channel=64, model_channel=128, attention_layers=2),
-        loss=dict(tau=0.1, eps_offset=2.0),
-        slam_system=dict(
-            coor_scale=60, odometer_candidates_num=1,
-            registration_sample_odometer=0.5, edge_confidence_drop=0.0,
-            edge_rmse_drop=5.0, max_continuous_drop_scan=5,
-            continuous_drop_scan_strategy="recover",
-            key_frame_distance="auto", key_frame_distance_0=4.0,
-            enable_s2m_adjust=True, registration_sample_mapping=0.5,
-            enable_loop_closure=False, loop_detection_gap=0,
-            loop_detection_transaction_gap=10.0,
-            loop_detection_trust_range=3, loop_detection_gnss_distance=-1,
-            loop_detection_pred_distance=100.0,
-            loop_detection_rotation_min=30.0,
-            loop_detection_translation_min=10.0,
-            loop_detection_prob_acpt_threshold=0.6,
-            loop_detection_candidates_num=1, registration_sample_loop=0.5,
-            loop_detection_confidence_acpt_threshold=0.3,
-            enable_global_optimization=False, global_optimization_gap=0),
-        tpu=dict(encoder_points=2048, reg_buckets=[128, 256, 512, 1024],
-                 loop_batch_buckets=[1, 4, 16, 64], extract_chunk=4))
+    """pipeline/demo.demo_args (the model of the synthetic_demo weights) as
+    a dict over the sequence directory `root`, loop closure and global
+    optimization off, as in tests/test_mt_long_stream.py. Its `tpu:` tree
+    keeps the keys the demo sets away from the defaults but `bf16` (it
+    lowers the JAX package's matmul precision; the port ignores it)."""
+    args = demo_args(root, out)
+    cfg = json.loads(json.dumps(args))
+    cfg.update(infer_src=[root])
+    cfg["slam_system"].update(enable_loop_closure=False,
+                              enable_global_optimization=False)
+    cfg["tpu"] = {k: v for k, v in cfg["tpu"].items() if k != "bf16"
+                  and (k not in TPU_DEFAULTS or TPU_DEFAULTS[k] != v)}
+    return cfg
 
 
 def write_world(root: str, n_frames: int, frames_per_lap: int) -> None:
