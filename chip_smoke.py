@@ -510,10 +510,12 @@ def odd_fps_cases(torch, dev):
 
 # ------------------------------------------------------------------- K2
 def check_knn(torch, nb, points, valid, centers, k, radius):
-    """One K2 shape against the plain version; returns its entry.
-    Tolerances: identical neighbour sets but for exact ties, dist2 relerr
-    <= 1e-5 (the two are built to give the same bits; max_abs_err reports
-    what they gave); cnt equal, s and S6 within one float32 ulp."""
+    """One K2 shape against the plain version; returns its entry, which
+    names the route `knn_cuda` took. Tolerances: identical neighbour sets
+    but for exact ties, dist2 relerr <= 1e-5 (the two are built to give the
+    same bits; max_abs_err reports what they gave), and on the wide route
+    indices and dist2 bit for bit; cnt equal, s and S6 within one float32
+    ulp."""
     b, n, _ = points.shape
     s = centers.shape[1]
     got = nb.knn_cuda(points, centers, k, valid, radius)
@@ -521,6 +523,12 @@ def check_knn(torch, nb, points, valid, centers, k, radius):
     torch.cuda.synchronize()
     got = [x.cpu().numpy() for x in got]
     ref = [x.cpu().numpy() for x in ref]
+    route = nb.knn_route(k)
+    bit_equal = bool(np.array_equal(got[0], ref[0])
+                     and np.array_equal(got[1], ref[1]))
+    if route == "wide" and not bit_equal:
+        raise AssertionError(f"K2's wide route differs from its plain "
+                             f"version at B={b} N={n} S={s} k={k}")
     same = np.all(np.sort(got[0], -1) == np.sort(ref[0], -1), -1)
     for r in zip(*np.nonzero(~same)):
         kth = ref[1][r][-1]
@@ -555,10 +563,10 @@ def check_knn(torch, nb, points, valid, centers, k, radius):
         nbytes += b * s * 40
     bound_ms, by = bound(nbytes, flops)
     return dict(name="knn", shape=list(nb.knn_shape(b, n, s, k, radius)),
-                valid_points=int(valid.sum()), route="cuda",
-                source=SOURCES["knn"], replaces=REPLACES["knn"],
-                max_abs_err=err, ms=ms, host_us=host_us, plain_ms=plain_ms,
-                bound_ms=bound_ms,
+                valid_points=int(valid.sum()), route="cuda", k2_route=route,
+                bit_equal=bit_equal, source=SOURCES["knn"],
+                replaces=REPLACES["knn"], max_abs_err=err, ms=ms,
+                host_us=host_us, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, library_ms=library_ms)
 
 
@@ -639,22 +647,32 @@ def demo_knn_inputs(torch, dev, scans, valid, b, n, s, seed):
             t([x.astype(np.float32) for x in out[2]]))
 
 
-def odd_knn_cases(torch, dev, scan_pts, scan_valid):
+def odd_knn_cases(torch, nb, dev, scan_pts, scan_valid, radius):
     """K2 off the paths' shapes: (name, points, valid, centers, k, radius)
-    at k = 65, 128 (beyond the earlier limit of 64) and 512 (KNN_MAX_K),
-    on points that all
-    occur twice (exact distance ties), and with fewer valid points than k,
-    the last two with moments and a center count that is no multiple of a
-    warp's four."""
+    at k = 65, 128 (beyond the earlier limit of 64) and 512 (KNN_MAX_K) and
+    on both sides of the wide route's threshold, on 4096 points of a scan
+    and 1024 centers; on the scan itself at k = 128 without moments and at
+    k = 128, 256 and 512 with moments at `radius` (the preprocess sweep's);
+    on points that all occur twice (exact distance ties), and with fewer
+    valid points than k, the last two with moments and a center count that
+    is no multiple of a warp's four."""
     g = np.random.default_rng(SEED + 3)
     wide = knn_inputs(torch, dev, scan_pts, scan_valid, 4096, 1024, 0.0, 11)
+    scan = knn_inputs(torch, dev, scan_pts, scan_valid, N_PAD, N_PAD,
+                      radius, 12)
+    kw = nb.KNN_WIDE_K
     pts = g.normal(size=(1, 3000, 3)).astype(np.float32)
     pts[:, 1500:] = pts[:, :1500]
     few_v = np.zeros((1, 3000), bool)
     few_v[0, g.permutation(3000)[:20]] = True
     t = lambda x: torch.from_numpy(x).to(dev)
     return [("k65", *wide, 65, 0.0), ("k128", *wide, 128, 0.0),
-            ("k512", *wide, 512, 0.0),
+            ("k512", *wide, 512, 0.0), ("below_wide_k", *wide, kw - 1, 0.0),
+            ("above_wide_k", *wide, kw + 1, 0.0),
+            ("scan_k128", *scan, 128, 0.0),
+            ("scan_k128_moments", *scan, 128, radius),
+            ("scan_k256_moments", *scan, 256, radius),
+            ("scan_k512_moments", *scan, 512, radius),
             ("ties", t(pts), t(np.ones((1, 3000), bool)), t(pts[:, :1001]),
              40, 0.3),
             ("few_valid", t(pts), t(few_v), t(pts[:, :1001]), 40, 0.3)]
@@ -2134,14 +2152,17 @@ def main(out_dir: str = "") -> int:
             continue   # FP 16 -> 64 is a full-width shape too
         k2.append(check_knn(torch, neighbors, *demo_knn_inputs(
             torch, dev, d_pts, d_valid, b, n, s, 500 + j), k, radius))
-    odd = {name: {key: en[key] for key in ("ms", "host_us", "plain_ms",
-                                           "bound_ms", "library_ms")}
-           for name, p, v, c, k, radius in odd_knn_cases(torch, dev, pts[0],
-                                                         valid[0])
+    odd = {name: {key: en[key] for key in (
+        "shape", "k2_route", "bit_equal", "ms", "host_us", "plain_ms",
+        "bound_ms", "library_ms")}
+           for name, p, v, c, k, radius in odd_knn_cases(
+               torch, neighbors, dev, pts[0], valid[0], pre.normals_radius)
            for en in [check_knn(torch, neighbors, p, v, c, k, radius)]}
-    emit(dict(phase="k2", card=smi, odd_cases=odd, shapes=[
-        {key: e[key] for key in ("shape", "max_abs_err", "ms", "host_us",
-                                 "plain_ms", "library_ms")} for e in k2]))
+    emit(dict(phase="k2", card=smi, wide_k=neighbors.KNN_WIDE_K,
+              odd_cases=odd, shapes=[
+        {key: e[key] for key in ("shape", "k2_route", "bit_equal",
+                                 "max_abs_err", "ms", "host_us", "plain_ms",
+                                 "library_ms")} for e in k2]))
     entries += k2
 
     # ---------------------------------------------------------- K3, K4

@@ -53,6 +53,47 @@
 //     merged by the same routine at the end, and their float64 moment sums
 //     added in warp order.
 //   * Outputs are written by whole warps, k consecutive values a center.
+//
+// That route was tuned at the paths' k (1-41). At wide k it filters little
+// (every part fills a run of k keys from its share of the points), merges
+// 64 keys at a time into runs of k, and its 2 * kpad keys a center leave a
+// block four warps an SM: at (1, 4096, 1024) it took 1.98 ms for k = 512,
+// 7.6 times torch.cdist + topk. From k = kWideK on a second route selects
+// (the wide route, `wide_kernel`):
+//   * A block of kWideThreads threads takes one center and keeps a list of
+//     up to kList candidate keys in shared memory. A scan longer than the
+//     list is first sampled: about 4kn / kList points in a scattered order
+//     (i * stride mod n, the stride near n / golden ratio: regular runs of
+//     points aliased with the scan's rings and measured twice as slow), and
+//     a radix select finds a bound with at least k and at most 2k sampled
+//     keys at or below it. The scan's k smallest keys lie below it too.
+//   * One pass over the scan measures every point once (coalesced float4
+//     loads, the next 256 in flight), adds the moments, and appends the
+//     keys at or below the bound to the list (ballot, one atomic a warp):
+//     about a quarter of the list. This pass is most of the route's time
+//     at n = 16384 (about 16 bytes a pair from L2 for one center a block).
+//   * Radix select over the list: kDigit bits a pass from the top of the
+//     64-bit key, a histogram in shared memory (a warp adds the lanes that
+//     share the first active lane's digit with one atomic: a center's
+//     distances crowd into few digits), a block scan over the kBins counts
+//     picks the bucket of the k-th key, until at most kp2 keys lie at or
+//     below the bucket. Keys are distinct, so exact ties in distance are
+//     settled by the index digits, as the key order says; the cost depends
+//     on neither k nor the order of the points. If the sample misled and
+//     the list overflowed, the same select runs over the scan itself,
+//     measured again each pass.
+//   * Those keys (kEmpty pads them to kp2, a power of two of at least 32)
+//     are sorted by one warp in registers, a bitonic network with shuffles
+//     (a kernel instance for each kp2, so that a short sort does not pay a
+//     long one's registers), which writes the first k.
+//   * The moments are float64 sums, each thread's in its own order,
+//     reduced warp by warp in a fixed order and rounded once.
+// kWideK = 42 is the lowest k above the widest a path asks for (41), so no
+// path changes route. On the card (scripts/bench_torch_kernels.py; PERF.md)
+// the wide route is about 3x faster than the other at (1, 4096, 1024) at
+// every k from 42 on, and on the preprocess sweep's scan (N = S = 16384,
+// moments at 0.5 m) the two are within 1.5% at k = 42-50, the wide one
+// ahead from k = 56 on.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +115,15 @@ constexpr int kMaxK = 512;
 constexpr int kMaxWarps = 8;
 // an empty slot of a run: distance +inf, the largest index
 constexpr uint64_t kEmpty = 0xff8000007fffffffull;
+// the wide route: from k = kWideK on (ops/neighbors.py mirrors it as
+// KNN_WIDE_K)
+constexpr int kWideK = 42;
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kDigit = 8;
+constexpr int kBins = 1 << kDigit;
+static_assert(kBins == kWideThreads, "a thread owns one bin of a histogram");
+constexpr int kList = 4096;  // candidate keys a center keeps in shared memory
 
 // Merge the m keys at `cand` (any order, m <= kQueue, distinct unless
 // kEmpty) into the sorted run `src` of k keys; the k smallest go, sorted,
@@ -344,6 +394,22 @@ knn_kernel(const float4* __restrict__ packed,
   }
 }
 
+// A multiplier near count / golden ratio and coprime to count: i * it mod
+// count visits 0 .. count - 1 once each, scattered.
+int golden_stride(int count) {
+  int stride = (int)(count * 0.6180339887) | 1;
+  auto gcd = [](int a, int c) {
+    while (c) {
+      const int r = a % c;
+      a = c;
+      c = r;
+    }
+    return a;
+  };
+  while (gcd(stride, count) != 1) stride += 2;
+  return stride;
+}
+
 size_t smem_bytes(int warps, int kpad, bool moments) {
   return (size_t)warps * kGroup * (2 * kpad + kQueue) * sizeof(uint64_t) +
          (moments ? (size_t)warps * kGroup * kFeat * sizeof(double) : 0) +
@@ -370,19 +436,9 @@ cudaError_t launch(const float4* packed, const float* centers, int b, int n,
     warps = 4;
     parts = min(parts, 4);
   }
-  // the multiplier of the visiting order: near steps / golden ratio, and
-  // coprime to the step count so that every step is visited once
-  const int steps = (n + 31) / 32;
-  int stride = (int)(steps * 0.6180339887) | 1;
-  auto gcd = [](int a, int c) {
-    while (c) {
-      const int r = a % c;
-      a = c;
-      c = r;
-    }
-    return a;
-  };
-  while (gcd(stride, steps) != 1) stride += 2;
+  // the multiplier of the visiting order, so that every step is visited
+  // once
+  const int stride = golden_stride((n + 31) / 32);
   const size_t smem = smem_bytes(warps, kpad, MOMENTS);
   auto kernel = k == 1 ? knn_kernel<MOMENTS, true>
                         : knn_kernel<MOMENTS, false>;
@@ -396,20 +452,342 @@ cudaError_t launch(const float4* packed, const float* centers, int b, int n,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide route
+
+// Count the digit `bin` of each lane with `on` in the histogram. The whole
+// warp calls: the lanes that share the first active lane's digit add with
+// one atomic (a center's distances crowd into a few digits at the top),
+// the others one each.
+__device__ __forceinline__ void count_digit(unsigned* hist, bool on,
+                                            unsigned bin, int lane) {
+  const unsigned act = __ballot_sync(kFull, on);
+  if (act == 0u) return;
+  const int src = __ffs(act) - 1;
+  const unsigned lead = __shfl_sync(kFull, bin, src);
+  const unsigned same = __ballot_sync(kFull, on && bin == lead);
+  if (lane == src) atomicAdd(&hist[lead], (unsigned)__popc(same));
+  else if (on && bin != lead) atomicAdd(&hist[bin], 1u);
+}
+
+// Exclusive prefix sum over the block of one value a thread, in thread
+// order. `tot` holds kWideWarps values; every thread calls, and the caller
+// syncs before `tot` is written again.
+__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v,
+                                                        unsigned* tot,
+                                                        int lane, int warp) {
+  unsigned x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) tot[warp] = x;
+  __syncthreads();
+  unsigned base = 0u;
+  for (int w = 0; w < warp; ++w) base += tot[w];
+  return base + x - v;
+}
+
+// Append the lanes' keys with `on` at the counter `*fill`, in any order,
+// while the slots last (`*fill` counts them all). The whole warp calls.
+__device__ __forceinline__ void append(uint64_t* dst, unsigned* fill,
+                                       int cap, bool on, uint64_t key,
+                                       int lane) {
+  const unsigned hits = __ballot_sync(kFull, on);
+  if (hits == 0u) return;
+  unsigned base = 0u;
+  if (lane == 0) base = atomicAdd(fill, (unsigned)__popc(hits));
+  base = __shfl_sync(kFull, base, 0) + __popc(hits & ((1u << lane) - 1u));
+  if (on && base < (unsigned)cap) dst[base] = key;
+}
+
+// The block's scratch in shared memory: a histogram of kBins counts, the
+// warps' scan totals, and kPicks counters: the selected digit, the keys
+// below it and its count, then the fills of the list and of the sort.
+constexpr int kPicks = 5;
+struct Scratch {
+  unsigned* hist;
+  unsigned* tot;
+  unsigned* pick;
+};
+
+// Radix select over the `count` 64-bit keys get(0), ..., get(count - 1):
+// the digits of the k-th smallest, kDigit bits a pass from the top, until
+// the keys at or below the selected bucket number at most `room` (room >=
+// k; the keys are distinct, so the last digit leaves exactly k) -> the
+// bucket's largest key, `bound`: at least k and at most `room` keys are <=
+// it, and they hold the k smallest. The histogram is zero on entry and on
+// return. Every thread calls.
+template <class Get>
+__device__ uint64_t select_bound(int count, Get get, int k, int room,
+                                 Scratch sc, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  uint64_t prefix = 0ull, mask = 0ull;
+  int kk = k;
+  for (int shift = 64 - kDigit;; shift -= kDigit) {
+    for (int i0 = 0; i0 < count; i0 += kWideThreads) {
+      const int i = i0 + tid;
+      const bool on = i < count;
+      const uint64_t key = on ? get(i) : 0ull;
+      count_digit(sc.hist, on && (key & mask) == prefix,
+                  (unsigned)(key >> shift) & (kBins - 1), lane);
+    }
+    __syncthreads();
+    const unsigned c = sc.hist[tid];
+    const unsigned below = block_exclusive_sum(c, sc.tot, lane, warp);
+    sc.hist[tid] = 0u;
+    if (below < (unsigned)kk && (unsigned)kk <= below + c) {
+      sc.pick[0] = (unsigned)tid;
+      sc.pick[1] = below;
+      sc.pick[2] = c;
+    }
+    __syncthreads();
+    kk -= (int)sc.pick[1];
+    prefix |= (uint64_t)sc.pick[0] << shift;
+    mask |= (uint64_t)(kBins - 1) << shift;
+    if (k - kk + (int)sc.pick[2] <= room || shift == 0) {
+      __syncthreads();  // pick is written again only after this
+      return prefix | ~mask;
+    }
+  }
+}
+
+// One warp sorts the 32 * KPL keys at `sel` ascending by a bitonic network
+// in registers (key r * 32 + lane in v[r]: partners 32 or more apart are
+// the lane's own registers, nearer ones come by shuffle) and writes the
+// first k as indices and distances.
+template <int KPL>
+__device__ __forceinline__ void sort_and_write(const uint64_t* sel, int k,
+                                               int lane, int64_t* idx_row,
+                                               float* d2_row) {
+  uint64_t v[KPL];
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) v[r] = sel[r * 32 + lane];
+#pragma unroll
+  for (int size = 2; size <= 32 * KPL; size <<= 1) {
+#pragma unroll
+    for (int half = size >> 1; half > 0; half >>= 1) {
+#pragma unroll
+      for (int r = 0; r < KPL; ++r) {
+        const bool up = ((r * 32 + lane) & size) == 0;
+        if (half >= 32) {
+          const int h = half / 32;
+          if (r & h) continue;
+          const uint64_t x = v[r], y = v[r + h];
+          if ((x > y) == up) {
+            v[r] = y;
+            v[r + h] = x;
+          }
+        } else {
+          // the lower key of an ascending pair keeps the smaller one
+          const uint64_t y = __shfl_xor_sync(kFull, v[r], half);
+          const bool keep_min = ((lane & half) == 0) == up;
+          v[r] = keep_min == (v[r] < y) ? v[r] : y;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) {
+    const int e = r * 32 + lane;
+    if (e < k) {
+      idx_row[e] = (int64_t)(uint32_t)v[r];
+      d2_row[e] = mono_float((uint32_t)(v[r] >> 32));
+    }
+  }
+}
+
+// One block a center (blockIdx.x) of scan blockIdx.y:
+//   1. With n > list_cap, a sample: the points i * order mod n, i < m
+//      (`m`, `order` from the host), go to `list` as keys, and
+//      select_bound finds `tau`, with k to 2k sampled keys <= it: it bounds
+//      the scan's k-th key from above. Without a sample tau is the largest
+//      key.
+//   2. One pass over the scan measures every point (the moments ride it)
+//      and appends the keys <= tau to `list`, up to 2k * n / m of them.
+//   3. select_bound over the list (or, if it overflowed, over the scan
+//      measured again) leaves at most kp2 = 32 * KPL keys <= its bound;
+//      they go to `sel`, and warp 0 sorts them and writes the first k
+//      (sort_and_write).
+// Shared memory: list_cap keys, kp2 keys, with moments kWideWarps * kFeat
+// doubles, kBins + kWideWarps + kPicks counters.
+template <bool MOMENTS, int KPL>
+__global__ void __launch_bounds__(kWideThreads)
+wide_kernel(const float4* __restrict__ packed,
+            const float* __restrict__ centers, int n, int s, int k,
+            int list_cap, int m, int order, float r2,
+            int64_t* __restrict__ idx_out,
+            float* __restrict__ d2_out, float* __restrict__ mom_out) {
+  constexpr int kp2 = 32 * KPL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* list = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* sel = list + list_cap;
+  double* red = reinterpret_cast<double*>(sel + kp2);
+  Scratch sc;
+  sc.hist =
+      reinterpret_cast<unsigned*>(red + (MOMENTS ? kWideWarps * kFeat : 0));
+  sc.tot = sc.hist + kBins;
+  sc.pick = sc.tot + kWideWarps;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = (size_t)blockIdx.y * s + blockIdx.x;
+  const float4* P = packed + (size_t)blockIdx.y * n;
+  const float cx = centers[row * 3], cy = centers[row * 3 + 1],
+              cz = centers[row * 3 + 2];
+  const float c2 = dpm::sq_norm(cx, cy, cz);
+  auto key_of = [&](int j) -> uint64_t {
+    const float4 q = P[j];
+    const float d =
+        q.w >= 0.f ? dpm::dist2(c2, cx, cy, cz, q.w, q.x, q.y, q.z) : 1e9f;
+    return ((uint64_t)mono_bits(d) << 32) | (uint32_t)j;
+  };
+
+  sc.hist[tid] = 0u;
+  if (tid < kPicks) sc.pick[tid] = 0u;
+  uint64_t tau = ~0ull;
+  if (m > 0) {
+    for (int i = tid; i < m; i += kWideThreads)
+      list[i] = key_of((int)((long long)i * order % n));
+    __syncthreads();
+    tau = select_bound(m, [&](int i) { return list[i]; }, k, 2 * k, sc, tid);
+  } else {
+    __syncthreads();
+  }
+
+  // every point: the moments, and the keys <= tau into the list
+  double mom[kFeat];
+#pragma unroll
+  for (int t = 0; t < kFeat; ++t) mom[t] = 0.0;
+  const float4 nothing = make_float4(0.f, 0.f, 0.f, -1.f);
+  float4 next = tid < n ? P[tid] : nothing;
+  for (int j0 = 0; j0 < n; j0 += kWideThreads) {
+    const int j = j0 + tid;
+    const bool on = j < n;
+    const float4 q = next;
+    next = j + kWideThreads < n ? P[j + kWideThreads] : nothing;
+    const bool live = q.w >= 0.f;
+    const float d =
+        live ? dpm::dist2(c2, cx, cy, cz, q.w, q.x, q.y, q.z) : 1e9f;
+    const uint64_t key = ((uint64_t)mono_bits(d) << 32) | (uint32_t)j;
+    if (MOMENTS && on && live && d <= r2) {
+      double f[kFeat - 1];
+      dpm::features(q.x, q.y, q.z, f);
+      dpm::add_point(mom, f);
+    }
+    append(list, &sc.pick[3], list_cap, on && key <= tau, key, lane);
+  }
+  if (MOMENTS) reduce_moments(mom, red + warp * kFeat, lane);
+  __syncthreads();
+
+  // at most kp2 keys <= bound, the k smallest among them, into sel
+  const int listed = (int)sc.pick[3];
+  if (listed <= list_cap) {
+    auto get = [&](int i) { return list[i]; };
+    const uint64_t bound = select_bound(listed, get, k, kp2, sc, tid);
+    for (int i0 = 0; i0 < listed; i0 += kWideThreads) {
+      const int i = i0 + tid;
+      const uint64_t key = i < listed ? list[i] : kEmpty;
+      append(sel, &sc.pick[4], kp2, i < listed && key <= bound, key, lane);
+    }
+  } else {  // the sample bounded badly: select over the scan itself
+    const uint64_t bound = select_bound(n, key_of, k, kp2, sc, tid);
+    for (int j0 = 0; j0 < n; j0 += kWideThreads) {
+      const int j = j0 + tid;
+      const uint64_t key = j < n ? key_of(j) : kEmpty;
+      append(sel, &sc.pick[4], kp2, j < n && key <= bound, key, lane);
+    }
+  }
+  __syncthreads();
+  for (int i = (int)sc.pick[4] + tid; i < kp2; i += kWideThreads)
+    sel[i] = kEmpty;
+  __syncthreads();
+
+  // warp 0 writes the moments, sorts the kp2 keys and writes the first k
+  if (warp != 0) return;
+  if (MOMENTS && lane < kFeat) {
+    double v = 0.0;
+    for (int w = 0; w < kWideWarps; ++w) v += red[w * kFeat + lane];
+    const float r = __double2float_rn(v);
+    mom_out[row * kFeat + lane] = lane == 0 ? fmaxf(r, 1.f) : r;
+  }
+  sort_and_write<KPL>(sel, k, lane, idx_out + row * k, d2_out + row * k);
+}
+
+size_t wide_smem_bytes(int list_cap, int kp2, bool moments) {
+  return (size_t)(list_cap + kp2) * sizeof(uint64_t) +
+         (moments ? (size_t)kWideWarps * kFeat * sizeof(double) : 0) +
+         (size_t)(kBins + kWideWarps + kPicks) * sizeof(unsigned);
+}
+
+// The sample's size: 0 (no sample) when the list holds the whole scan;
+// else 4kn / kList points (at least k, at most the list), so that about a
+// quarter to a half of the list falls under its bound. It is taken in the
+// order i * golden_stride(n) mod n, so that a scan's sweep order or its
+// rings cannot make it one-sided (regular runs of points measured up to
+// twice as slow: their bound overflowed the list).
+int sample_size(int n, int k) {
+  if (n <= kList) return 0;
+  return (int)min((long long)kList,
+                  max((long long)k, (4LL * k * n + kList - 1) / kList));
+}
+
+
+template <bool MOMENTS, int KPL>
+cudaError_t launch_wide(const float4* packed, const float* centers, int b,
+                        int n, int s, int k, float r2, int64_t* idx,
+                        float* d2, float* mom, cudaStream_t stream) {
+  const int list_cap = min(n, kList);
+  const size_t smem = wide_smem_bytes(list_cap, 32 * KPL, MOMENTS);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_kernel<MOMENTS, KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  wide_kernel<MOMENTS, KPL><<<dim3(s, b), kWideThreads, smem, stream>>>(
+      packed, centers, n, s, k, list_cap, sample_size(n, k), golden_stride(n),
+      r2, idx, d2, mom);
+  return cudaGetLastError();
+}
+
+// The wide route's kernel for k: 32 * KPL sorted keys, the power of two
+// at or above k (and at least a warp's worth), each its own instance so
+// that a short sort does not pay a long one's registers.
+template <bool MOMENTS>
+cudaError_t launch_wide(const float4* packed, const float* centers, int b,
+                        int n, int s, int k, float r2, int64_t* idx,
+                        float* d2, float* mom, cudaStream_t stream) {
+  if (k <= 32)
+    return launch_wide<MOMENTS, 1>(packed, centers, b, n, s, k, r2, idx, d2,
+                                   mom, stream);
+  if (k <= 64)
+    return launch_wide<MOMENTS, 2>(packed, centers, b, n, s, k, r2, idx, d2,
+                                   mom, stream);
+  if (k <= 128)
+    return launch_wide<MOMENTS, 4>(packed, centers, b, n, s, k, r2, idx, d2,
+                                   mom, stream);
+  if (k <= 256)
+    return launch_wide<MOMENTS, 8>(packed, centers, b, n, s, k, r2, idx, d2,
+                                   mom, stream);
+  return launch_wide<MOMENTS, 16>(packed, centers, b, n, s, k, r2, idx, d2,
+                                  mom, stream);
+}
+
 }  // namespace
 
 // points (b, n, 3) f32, valid (b, n) bool as bytes, centers (b, s, 3) f32;
 // packed (b, n, 4) f32 scratch; idx (b, s, k) int64 and d2 (b, s, k) f32
 // out; mom (b, s, 10) f32 out, or null for no moments. All contiguous on
-// the device; 1 <= k <= min(n, 512), b <= 65535. Launches on `stream` and
+// the device; 1 <= k <= min(n, 512), b <= 65535. `route` 0 takes the wide
+// route from k = kWideK on, 1 the queue-and-merge route and 2 the wide
+// route at any k (to time one against the other). Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 extern "C" int dpm_knn(const void* points, const void* valid,
                        const void* centers, int b, int n, int s, int k,
                        float r2, void* packed, void* idx, void* d2,
-                       void* mom, void* stream) {
+                       void* mom, int route, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || s < 1 || k < 1 || k > n || k > kMaxK ||
-      (long)b * n > 0x7fffffffL)
+      (long)b * n > 0x7fffffffL || route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
+  const bool wide = route == 2 || (route == 0 && k >= kWideK);
   auto st = static_cast<cudaStream_t>(stream);
   auto pk = static_cast<float4*>(packed);
   const int total = b * n;
@@ -421,8 +799,13 @@ extern "C" int dpm_knn(const void* points, const void* valid,
   auto c = static_cast<const float*>(centers);
   auto i = static_cast<int64_t*>(idx);
   auto d = static_cast<float*>(d2);
-  if (mom != nullptr)
-    return (int)launch<true>(pk, c, b, n, s, k, r2, i, d,
-                             static_cast<float*>(mom), st);
-  return (int)launch<false>(pk, c, b, n, s, k, r2, i, d, nullptr, st);
+  auto mo = static_cast<float*>(mom);
+  if (wide)
+    return (int)(mo != nullptr
+                     ? launch_wide<true>(pk, c, b, n, s, k, r2, i, d, mo, st)
+                     : launch_wide<false>(pk, c, b, n, s, k, r2, i, d, mo,
+                                          st));
+  return (int)(mo != nullptr
+                   ? launch<true>(pk, c, b, n, s, k, r2, i, d, mo, st)
+                   : launch<false>(pk, c, b, n, s, k, r2, i, d, mo, st));
 }

@@ -177,7 +177,7 @@ class Kernel:
 FPS = Kernel("fps", "fps.cu", "dpm_fps", [_P, _P, _I, _I, _I, _P, _P])
 #: K2: exact kNN with optional radius moments (csrc/knn.cu).
 KNN = Kernel("knn", "knn.cu", "dpm_knn",
-             [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+             [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _P],
              headers=("radius.cuh",))
 #: K3: radius-PCA moments (csrc/moments.cu).
 MOMENTS = Kernel("moments", "moments.cu", "dpm_moments",

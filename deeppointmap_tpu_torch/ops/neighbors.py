@@ -24,6 +24,11 @@ BIG = 1e9
 #: K2 keeps a center's k best as a sorted run in shared memory, of at most
 #: this length (the JAX package's Pallas route takes k <= 512 too)
 KNN_MAX_K = 512
+#: from this k on K2 selects by radix select (its wide route), below it by
+#: queue and merge; csrc/knn.cu's kWideK, mirrored here for reporting
+KNN_WIDE_K = 42
+#: `route` values of csrc/knn.cu's dpm_knn
+_ROUTES = {"auto": 0, "narrow": 1, "wide": 2}
 _IDX_BITS = 31
 
 
@@ -107,6 +112,12 @@ def knn_shape(b: int, n: int, s: int, k: int, radius: float) -> tuple:
     return b, n, s, k, radius
 
 
+def knn_route(k: int) -> str:
+    """The route K2 takes at `k`: "wide" (radix select) from KNN_WIDE_K
+    on, else "narrow" (queue and merge)."""
+    return "wide" if k >= KNN_WIDE_K else "narrow"
+
+
 def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
     """Launch K2 (csrc/knn.cu) on the current stream; same arguments and
     returns as `knn`. Tensors must be contiguous on one GPU.
@@ -114,11 +125,21 @@ def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
     Replaces the TPU kernel deeppointmap_tpu/ops/pallas_knn.py
     (fused_knn_moments), exact where that one keeps one winner per index
     class. Bound: operations (8 FLOPs per center-point pair, ~20 more per
-    in-radius pair); what costs is the selection, so a warp shares four
-    centers' thresholds, lanes queue the few candidates that beat them and
-    the warp merges a full queue into the center's sorted run of 64-bit
-    (distance, index) keys; the radius moments ride the same pass as
-    float64 sums (csrc/knn.cu says more)."""
+    in-radius pair); what costs is the selection. Below KNN_WIDE_K a warp
+    shares four centers' thresholds, lanes queue the few candidates that
+    beat them and the warp merges a full queue into the center's sorted run
+    of 64-bit (distance, index) keys; from KNN_WIDE_K on a block takes a
+    center, bounds its k-th key by a sample, keeps the keys under the bound
+    in shared memory, radix-selects the k smallest among them and sorts
+    them in one warp. The radius moments ride the distance pass as float64
+    sums (csrc/knn.cu says more)."""
+    return knn_cuda_route(points, centers, k, points_valid, radius, "auto")
+
+
+def knn_cuda_route(points, centers, k: int, points_valid, radius: float,
+                   route: str):
+    """`knn_cuda` on the route `knn_route(k)` gives ("auto"), or on the
+    "narrow" or the "wide" one at any k, to time one against the other."""
     b, n, c = points.shape
     if c != 3 or centers.dim() != 3 or centers.shape[0] != b \
             or centers.shape[2] != 3:
@@ -149,7 +170,7 @@ def knn_cuda(points, centers, k: int, points_valid, radius: float = 0.0):
                        centers.data_ptr(), b, n, s, k, f32(radius * radius),
                        packed.data_ptr(), idx.data_ptr(), d2.data_ptr(),
                        None if mom is None else mom.data_ptr(),
-                       kernels.stream_ptr(dev), device=dev,
+                       _ROUTES[route], kernels.stream_ptr(dev), device=dev,
                        shape=knn_shape(b, n, s, k, radius))
     if mom is None:
         return idx, d2

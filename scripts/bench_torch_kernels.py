@@ -10,7 +10,10 @@ Without `--root` the kernels of this checkout are built, held against their
 plain versions (K1: identical indices; K2 and K4: identical indices and
 distances; K3: cnt identical; `--no-check` skips it) and timed: a run of
 launches between one pair of CUDA events (`chip_smoke.timed`),
-milliseconds a launch and the wrapper's host microseconds. With `--root` the same measurement runs once per given
+milliseconds a launch and the wrapper's host microseconds. K2's wide
+rows (k 42-512 and the threshold's neighbours, which no path runs) are
+timed on both of its routes (`route`), beside `torch.cdist` + `topk`
+(`library_ms`). With `--root` the same measurement runs once per given
 directory, in order, each in a process of its own on the same card: a root
 is a directory that holds a `deeppointmap_tpu_torch/` package (this
 checkout is `.`; another commit is unpacked with `git archive`), so two
@@ -41,12 +44,26 @@ KNN_SHAPES = [(16384, 16384, 17, 0.5), (16384, 16384, 17, 0.0),
               (16384, 16384, 41, 0.5), (16384, 4096, 32, 0.0),
               (4096, 4096, 32, 0.0), (1024, 1024, 32, 0.0),
               (256, 256, 32, 0.0), (16384, 4096, 1, 0.0)]
+#: k of K2's wide rows, each timed on both routes (no path runs them: the
+#: widest k a path asks for is 41); `wide_shapes` adds the threshold's
+#: neighbours
+WIDE_K = (44, 46, 48, 50, 56, 65, 96, 128, 256, 512)
 #: (k, radius) of K4 on the preprocess sweep's scan (`slam_a` runs k = 41
 #: with moments; the other rows split its time: k = 1 is the distance pass
 #: and the sort with one selection round), and the radius of K3 there
 #: (`slam_b`)
 SWEEP_SHAPES = [(41, 0.5), (17, 0.5), (41, 0.0), (1, 0.0)]
 MOMENTS_RADIUS = 0.5
+
+
+def wide_shapes(k_wide: int) -> list:
+    """(N, S, k, radius) of the wide rows: the wide-k check's subset of a
+    scan without moments, the whole scan with moments at 0.5 m, and the
+    whole scan without them at k = 128."""
+    ks = sorted({*WIDE_K, k_wide - 1, k_wide, k_wide + 1})
+    return ([(4096, 1024, k, 0.0) for k in ks]
+            + [(16384, 16384, k, 0.5) for k in ks]
+            + [(16384, 16384, 128, 0.0)])
 
 
 def measure(check: bool) -> dict:
@@ -104,6 +121,32 @@ def measure(check: bool) -> dict:
                                                               radius), 20)
         rows.append(dict(kernel="knn", shape=[1, n, s, k, radius], ms=ms,
                          host_us=host))
+    # the wide rows on each route (a root that predates the wide route has
+    # one), with torch.cdist + topk beside them
+    by_route = getattr(neighbors, "knn_cuda_route", None)
+    routes = ("narrow", "wide") if by_route else ("auto",)
+    k_wide = getattr(neighbors, "KNN_WIDE_K", neighbors.KNN_MAX_K + 1)
+    for j, (n, s, k, radius) in enumerate(wide_shapes(k_wide)):
+        p, v, c = cs.knn_inputs(torch, dev, pts[0], valid[0], n, s, radius,
+                                50 + j)
+        reps = 20 if n * s <= 1 << 24 else 3
+        lib_ms = cs.timed_ms(torch, lambda: torch.topk(
+            torch.cdist(c, p).masked_fill(~v[:, None, :], float("inf")), k,
+            dim=-1, largest=False), reps)
+        ref = neighbors.knn_plain(p, c, k, v, radius) if check else None
+        for route in routes:
+            run = (lambda: by_route(p, c, k, v, radius, route)) if by_route \
+                else (lambda: neighbors.knn_cuda(p, c, k, v, radius))
+            if check:
+                got = run()
+                if not all(torch.equal(a, r) for a, r in zip(got[:3],
+                                                             ref[:3])):
+                    raise AssertionError(f"K2 {route} differs at "
+                                         f"{(n, s, k, radius)}")
+            ms, host = cs.timed(torch, run, reps)
+            rows.append(dict(kernel="knn", shape=[1, n, s, k, radius],
+                             route=route, ms=ms, host_us=host,
+                             library_ms=lib_ms))
     # K3 and K4 on the preprocess sweep's inputs: the scan in raw meters
     # under the distance crop (chip_smoke's k3 / k4 phases)
     dist = np.linalg.norm(pts[0], axis=1)

@@ -84,13 +84,23 @@ def test_fps_bitwise(dev, b, n, n_valid, k, twice):
     (4096, 1023, 128, 0.2, 1.0),
     (2000, 50, 512, 0.0, 1.0),          # the widest run
     (3000, 1001, 40, 0.3, -1.0),        # every point twice: exact ties
-    (600, 77, 40, 0.5, 1.0)])           # with 20 valid points: fewer than k
+    (600, 77, 40, 0.5, 1.0),            # with 20 valid points: fewer than k
+    # the wide route (k >= KNN_WIDE_K) and its threshold
+    (4096, 1024, neighbors.KNN_WIDE_K - 1, 0.0, 1.0),
+    (4096, 1024, neighbors.KNN_WIDE_K + 1, 0.0, 1.0),
+    (4096, 1023, 256, 0.2, 1.0),
+    (16384, 16384, 128, 0.0, 20.0),
+    (20000, 300, 200, 0.5, 20.0),       # a sampled bound: N > the list
+    (3000, 1001, 200, 0.3, -1.0),       # exact ties at the k-th key
+    (600, 77, 100, 0.5, 1.0),           # 20 valid points
+    (300, 45, 300, 0.0, 1.0)])          # k = N
 def test_knn_bitwise(dev, n, s, k, radius, scale):
     """Indices and distances identical to the plain version (both evaluate
     one fixed order of single-rounded operations and rank 64-bit keys);
     cnt equal, s and S6 within one float32 ulp (float64 sums in another
     order, rounded once). The shapes cover each split of a center group's
-    scan over 1, 2, 4 or 8 warps."""
+    scan over 1, 2, 4 or 8 warps, and the wide route with its distances
+    kept in shared memory or measured again."""
     twice, scale = scale < 0, abs(scale)
     n_valid = 20 if n == 600 else int(0.8 * n)
     pts, valid = (x.to(dev) for x in _cloud(1, n, n_valid, n + k, scale))
@@ -108,6 +118,54 @@ def test_knn_bitwise(dev, n, s, k, radius, scale):
     for a, r in zip(got[3:], ref[3:]):
         _ulp_close(a, r)
     assert int(got[0].min()) >= 0 and int(got[0].max()) < n
+
+
+@pytest.mark.parametrize("k", sorted({1, 41, neighbors.KNN_WIDE_K - 1,
+                                      neighbors.KNN_WIDE_K, 128, 512}))
+@pytest.mark.parametrize("radius", [0.0, 0.3])
+def test_knn_routes_agree(dev, k, radius):
+    """Both routes of K2, forced at any k, equal the plain version (and so
+    each other) on points that all occur twice; `knn_cuda` takes the route
+    `knn_route` names."""
+    pts, valid = (x.to(dev) for x in _cloud(1, 2000, 1500, k))
+    pts[:, 1000:] = pts[:, :1000]
+    centers = pts[:, :333].contiguous()
+    ref = neighbors.knn_plain(pts, centers, k, valid, radius)
+    for route in ("narrow", "wide"):
+        got = neighbors.knn_cuda_route(pts, centers, k, valid, radius, route)
+        torch.cuda.synchronize()
+        for a, r in zip(got[:3], ref[:3]):
+            torch.testing.assert_close(a, r, rtol=0, atol=0)
+        for a, r in zip(got[3:], ref[3:]):
+            _ulp_close(a, r)
+    assert neighbors.knn_route(k) == ("wide" if k >= neighbors.KNN_WIDE_K
+                                      else "narrow")
+
+
+def test_knn_wide_sample_that_misleads(dev):
+    """The wide route when its sample's k-th key bounds too many candidates
+    for the list: the sampled points (csrc/knn.cu sample_size and
+    golden_stride: 4kn / 4096 of them, i * stride mod N) lie 100 times
+    farther out than the rest, so the list overflows and the route selects
+    over the scan itself. Identical to the plain version."""
+    n, k = 8000, 100
+    pts, valid = (x.to(dev) for x in _cloud(1, n, n, 3, scale=1.0))
+    stride = int(n * 0.6180339887) | 1
+    while np.gcd(stride, n) != 1:
+        stride += 2
+    m = min(4096, max(k, -(-4 * k * n // 4096)))
+    sampled = torch.tensor([i * stride % n for i in range(m)], device=dev)
+    pts[0, sampled] *= 100.0
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[sampled] = False
+    centers = pts[:, keep][:, :500].contiguous()
+    got = neighbors.knn_cuda(pts, centers, k, valid, 0.5)
+    ref = neighbors.knn_plain(pts, centers, k, valid, 0.5)
+    torch.cuda.synchronize()
+    for a, r in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    for a, r in zip(got[3:], ref[3:]):
+        _ulp_close(a, r)
 
 
 def test_knn_tail_carries_sentinel(dev):

@@ -1,12 +1,15 @@
 """The redesigned K1 (FPS) and K2 (kNN + moments) on the CPU: their plain
 versions against the JAX package at the widths the redesign opened, and
-pure-Python models of the two kernels' algorithms (csrc/fps.cu: partitioned
+pure-Python models of the kernels' algorithms (csrc/fps.cu: partitioned
 argmax over packed messages; csrc/knn.cu: threshold, queue and merge by
-ranks) held to the plain versions on inputs with ties, so that what the CUDA
+ranks, and the wide route's radix select, ordered compaction and bitonic
+sort) held to the plain versions on inputs with ties, so that what the CUDA
 sources do is rehearsed where no card is.
 """
 
 import bisect
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +27,7 @@ torch.set_num_threads(2)
 
 
 # ------------------------------------------------- plain versions vs JAX
-@pytest.mark.parametrize("k", [65, 128])
+@pytest.mark.parametrize("k", [65, 128, 256, 512])
 def test_knn_plain_wide_k_matches_jax(k):
     """k above the old limit of 64: index sets equal except at exact ties,
     dist2 within rtol 1e-5 of the terms' scale (the two distance formulas
@@ -153,6 +156,158 @@ def test_queue_and_merge_model_matches_knn_plain(n, n_valid, k, parts):
         bits = np.where(bits >> 31 == 1, bits ^ 0x80000000, ~bits)
         np.testing.assert_array_equal(bits.view(np.float32),
                                       ref_d2[0, row].numpy())
+
+
+# ------------------------------------------ model of knn.cu's wide route
+DIGIT = 8
+ALL = (1 << 64) - 1
+
+
+def _bitonic(a):
+    """csrc/knn.cu's bitonic network over a power-of-two list, in place:
+    at every (size, stride) stage pair t compares slots i and i + stride,
+    i = 2t - t mod stride, ascending where i & size == 0."""
+    kp2 = len(a)
+    size = 2
+    while size <= kp2:
+        stride = size // 2
+        while stride:
+            for t in range(kp2 // 2):
+                i = 2 * t - (t & (stride - 1))
+                x, y = a[i], a[i + stride]
+                if (x > y) == ((i & size) == 0):
+                    a[i], a[i + stride] = y, x
+            stride //= 2
+        size *= 2
+
+
+def _sample(n, k, cap):
+    """csrc/knn.cu sample_size and golden_stride with a list of `cap` keys
+    -> the sampled point indices."""
+    if n <= cap:
+        return []
+    m = min(cap, max(k, -(-4 * k * n // cap)))
+    stride = int(n * 0.6180339887) | 1
+    while np.gcd(stride, n) != 1:
+        stride += 2
+    return [i * stride % n for i in range(m)]
+
+
+def _select_bound(keys, k, room):
+    """csrc/knn.cu select_bound: radix select on the 64-bit keys, DIGIT
+    bits a pass from the top (the distance bits, then the index bits),
+    until at most `room` keys lie at or below the selected bucket -> the
+    bucket's largest key."""
+    prefix, mask, kk = 0, 0, k
+    for shift in range(64 - DIGIT, -1, -DIGIT):
+        hist = [0] * (1 << DIGIT)
+        for key in keys:
+            if key & mask == prefix:
+                hist[(key >> shift) & ((1 << DIGIT) - 1)] += 1
+        below = 0
+        for digit, c in enumerate(hist):      # exactly one bin holds it
+            if below < kk <= below + c:
+                break
+            below += c
+        kk -= below
+        prefix |= digit << shift
+        mask |= ((1 << DIGIT) - 1) << shift
+        if k - kk + c <= room or shift == 0:
+            bound = prefix | (ALL & ~mask)
+            assert k <= sum(key <= bound for key in keys) <= room
+            return bound
+
+
+def _wide_select(keys, n, k, cap, rng):
+    """One center through the wide route with a list of `cap` keys: the
+    sample's bound (at least k, at most 2k of its keys at or below it)
+    bounds the candidates (the sampled indices distinct),
+    the candidates are appended in any order (shuffled here), the select
+    leaves at most kp2 keys at or below its bound (the scan itself if the
+    list overflowed), kEmpty pads them to kp2 (at least 32) and the network
+    sorts.
+    -> (first k keys, sample size, overflowed)"""
+    kp2 = 32
+    while kp2 < k:
+        kp2 *= 2
+    sample = _sample(n, k, cap)
+    assert len(set(sample)) == len(sample) <= cap
+    tau = ALL
+    if sample:
+        tau = _select_bound([keys[j] for j in sample], k, 2 * k)
+    listed = [key for key in keys if key <= tau]
+    rng.shuffle(listed)
+    over = len(listed) > cap
+    src = keys if over else listed
+    bound = _select_bound(src, k, kp2)
+    sel = [key for key in src if key <= bound]
+    rng.shuffle(sel)
+    sel += [EMPTY] * (kp2 - len(sel))
+    _bitonic(sel)
+    return sel[:k], len(sample), over
+
+
+@pytest.mark.parametrize("n,n_valid,k,layout,cap,expect", [
+    (300, 300, 70, "twice", 4096, "whole"),        # duplicated points
+    (500, 40, 100, "twice", 4096, "whole"),        # fewer valid points than k
+    (97, 97, 97, "twice", 4096, "whole"),          # k = N, N no multiple of 32
+    (200, 200, 70, "same", 4096, "whole"),         # every distance tied
+    (1000, 900, tnb.KNN_WIDE_K - 1, "twice", 512, "sample"),  # threshold
+    (1000, 900, tnb.KNN_WIDE_K + 1, "twice", 512, "sample"),
+    (2100, 2000, 300, "twice", 1024, "sample"),    # k = 300 of a sample
+    (3000, 3000, 100, "same", 1024, "sample"),
+    (2000, 2000, 100, "hidden", 512, "overflow"),  # the sample misleads
+    (777, 700, 512, "random", 4096, "whole")])
+def test_radix_select_model_matches_knn_plain(n, n_valid, k, layout, cap,
+                                              expect):
+    """The wide route of csrc/knn.cu, in Python, on points with exact
+    distance ties (the index digits of the keys settle them), with fewer
+    valid points than k (their tail at 1e9, the lowest invalid indices), at
+    k = N, with a sampled bound and with a sample whose points lie far away
+    (the list overflows; the scan itself is selected): indices and distances
+    equal to knn_plain."""
+    g = np.random.default_rng(n + k)
+    pts = g.normal(size=(n, 3)).astype(np.float32)
+    if layout == "twice":
+        pts[n // 2:] = pts[:n - n // 2]
+    elif layout == "same":
+        pts[:] = pts[0]
+    pool = np.arange(n)
+    if layout == "hidden":          # the sampled points far from the centers
+        pts[_sample(n, k, cap)] *= 100.0
+        pool = np.setdiff1d(pool, _sample(n, k, cap))
+    valid = np.zeros(n, bool)
+    valid[g.permutation(n)[:n_valid]] = True
+    centers = np.concatenate([pts[g.permutation(pool)[:4]],
+                              g.normal(size=(2, 3)).astype(np.float32)])
+    p, v, c = t(pts), t(valid), t(centers)
+    ref_idx, ref_d2 = tnb.knn_plain(p[None], c[None], k, v[None])
+    for row, keys in enumerate(_keys(p, v, c)):
+        run, sampled, over = _wide_select(keys, n, k, cap, g)
+        assert (sampled > 0, over) == {"whole": (False, False),
+                                      "sample": (True, False),
+                                      "overflow": (True, True)}[expect]
+        assert [key & 0xffffffff for key in run] == ref_idx[0, row].tolist()
+        bits = np.array([key >> 32 for key in run], np.uint32)
+        bits = np.where(bits >> 31 == 1, bits ^ 0x80000000, ~bits)
+        np.testing.assert_array_equal(bits.view(np.float32),
+                                      ref_d2[0, row].numpy())
+
+
+def test_wide_threshold_mirrors_the_source():
+    """ops/neighbors.py's KNN_WIDE_K and KNN_MAX_K are csrc/knn.cu's kWideK
+    and kMaxK; the threshold lies above every k a path asks for (41) and
+    within the range the card's timings chose from (42..128)."""
+    src = (Path(tnb.__file__).resolve().parent.parent / "csrc"
+           / "knn.cu").read_text()
+    assert int(re.search(r"constexpr int kWideK = (\d+);", src)[1]) \
+        == tnb.KNN_WIDE_K
+    assert int(re.search(r"constexpr int kMaxK = (\d+);", src)[1]) \
+        == tnb.KNN_MAX_K
+    assert 41 < tnb.KNN_WIDE_K <= 128
+    assert [tnb.knn_route(k) for k in (1, 41, tnb.KNN_WIDE_K - 1,
+                                       tnb.KNN_WIDE_K, 512)] \
+        == ["narrow"] * 3 + ["wide"] * 2
 
 
 # ------------------------------------------------------ model of fps.cu
