@@ -124,6 +124,17 @@ Phases, in order, each printing one JSON line:
           launches a step), and one stage-1 batch of two frames on the GPU
           against the CPU from the same weights: loss relerr <= 1e-4, every
           gradient ||d|| / ||g|| <= 1e-3 (the worst printed).
+  mfu     scripts/mfu_profile_torch.py's report (pipeline/mfu.py's
+          programs, utils/roofline.py's count): extract, fused odometry
+          and register 256v256 with the information matrix on main's
+          engine and frames 0-1, and one stage-1 step (S = 2) of the
+          train phase's config, each a chain of calls ending in one
+          synchronize; one line a program with ms, GFLOP, GB (its
+          inputs, weights and outputs once; unfused_gbytes beside),
+          mfu, hbm_share, roofline_share (bound_by) and the card's name
+          and power limit. Fails if a share reads
+          outside (0, 1] (the count would be wrong) or K1 / K2 did not
+          launch.
   export  the train phase's weights_final.msgpack written in the
           reference's .pth schema (save_torch_weight) and read back through
           pipeline/common.load_weights (state dicts bit-equal); the train
@@ -185,6 +196,7 @@ import collections
 import contextlib
 import copy
 import filecmp
+import functools
 import json
 import os
 import re
@@ -198,7 +210,9 @@ import warnings
 
 import numpy as np
 
+from deeppointmap_tpu_torch.ops.neighbors import in_radius_pairs
 from deeppointmap_tpu_torch.pipeline import full_size
+from deeppointmap_tpu_torch.utils import roofline
 
 SEED = 0
 N_PAD = 16384
@@ -265,10 +279,10 @@ DEMO_STEPS = (20, 10)
 #: the scale phase: bench.py's scale block (three drifting laps)
 SCALE_FRAMES = 300
 SCALE_BLOCK = 100
+#: the mfu phase: calls a program (a chain), and stage-1 steps
+MFU_TRIALS = 10
+MFU_TRAIN_TRIALS = 5
 REPO = os.path.dirname(os.path.abspath(__file__))
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 REPLACES = {"fps": "deeppointmap_tpu/ops/pallas_fps.py:111",
             "knn": "deeppointmap_tpu/ops/pallas_knn.py:192",
             "moments": "deeppointmap_tpu/ops/pallas_moments.py:94",
@@ -397,9 +411,16 @@ def timed_ms(torch, fn, reps: int, rounds: int = 3) -> float:
     return timed(torch, fn, reps, rounds)[0]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_F32
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+@functools.lru_cache(maxsize=None)
+def card_peaks() -> roofline.Peaks:
+    """The card's published peaks (utils/roofline.device_peaks: raises on
+    a card it has none for)."""
+    return roofline.device_peaks("cuda")[0]
+
+
+def bound(cost: roofline.Cost) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of a utils/roofline count."""
+    return cost.bound_ms(card_peaks())
 
 
 def split_range(total: int, n_agents: int, index: int) -> tuple:
@@ -471,10 +492,7 @@ def check_fps(torch, sampling, xyz, valid, k):
     plain_ms = timed_ms(
         torch, lambda: sampling.farthest_point_sampling_plain(xyz, valid, k),
         1, 1)
-    # each of the k-1 steps: 3 sub, 3 mul, 2 add, 1 min per valid point
-    # (an invalid point is never a candidate)
-    bound_ms, by = bound(b * n * 13 + b * k * 8,
-                         9.0 * float(valid.sum()) * (k - 1))
+    bound_ms, by = bound(roofline.fps_cost(b, n, k, int(valid.sum())))
     return dict(name="fps", shape=list(sampling.fps_shape(b, n, k)),
                 valid_points=int(valid.sum()), route="cuda",
                 source=SOURCES["fps"], replaces=REPLACES["fps"],
@@ -553,15 +571,11 @@ def check_knn(torch, nb, points, valid, centers, k, radius):
         return torch.topk(d, k, dim=-1, largest=False)
 
     library_ms = timed_ms(torch, library, 10)
-    # 8 FLOPs for |c|^2 - 2 c.p + |p|^2 of each center with each valid
-    # point (an invalid point is no neighbour of anything); with moments 16
-    # more for each in-radius pair (this run's counts)
-    flops = 8.0 * s * float(valid.sum())
-    nbytes = b * n * 13 + b * s * 12 + b * s * k * 12
+    cost = roofline.knn_cost(b, n, s, k, int(valid.sum()))
     if radius > 0:
-        flops += 16.0 * float(got[2].sum())
-        nbytes += b * s * 40
-    bound_ms, by = bound(nbytes, flops)
+        cost = cost + roofline.moments_cost(b, s, in_radius_pairs(
+            points, valid, centers, radius))
+    bound_ms, by = bound(cost)
     return dict(name="knn", shape=list(nb.knn_shape(b, n, s, k, radius)),
                 valid_points=int(valid.sum()), route="cuda", k2_route=route,
                 bit_equal=bit_equal, source=SOURCES["knn"],
@@ -597,29 +611,21 @@ def encoder_knn_shapes(e, n_pad: int) -> list:
     FeaturePropagation 3-NN."""
     npoint, n_lv = e.npoint, len(e.npoint)
     shapes = [(n_pad, npoint[0], e.nsample_list[0][0], 0.0)]
-    for i in range(n_lv):
-        own = max(e.nsample_list[i][1:], default=0)
-        nxt = e.nsample_list[i + 1][0] if i + 1 < n_lv else 0
-        shapes.append((npoint[i], npoint[i], max(own, nxt), 0.0))
+    shapes += [(npoint[i], npoint[i], k, 0.0)
+               for i, k in enumerate(roofline.graph_ks(e))]
     for i in range(e.upsample_layers):
         shapes.append((npoint[n_lv - 1 - i], npoint[n_lv - 2 - i], 3, 0.0))
     return shapes
 
 
-def demo_scans(syn, n_frames: int, n_pad: int):
+def demo_scans(n_frames: int, n_pad: int):
     """The demo world's first scans (pipeline/demo.write_world: world seed
     0, a 25 m circle of DEMO_FRAMES frames, 2000 points a scan), normalized
     by 60 m and padded: (n_frames, n_pad, 3) and validity."""
-    rng = np.random.default_rng(0)
-    world = syn.make_world(rng)
-    poses = syn.circle_trajectory(DEMO_FRAMES, radius=25.0)
-    pts = np.zeros((n_frames, n_pad, 3), np.float32)
-    valid = np.zeros((n_frames, n_pad), bool)
-    for i in range(n_frames):
-        xyz = syn.render_scan(world, poses[i], rng=rng, max_points=2000)
-        pts[i, :len(xyz)] = xyz / 60.0
-        valid[i, :len(xyz)] = True
-    return pts, valid
+    from deeppointmap_tpu_torch.pipeline.demo import padded_scans
+
+    pts, valid = padded_scans(DEMO_FRAMES, n_frames, n_pad)
+    return pts / np.float32(60.0), valid
 
 
 def demo_knn_inputs(torch, dev, scans, valid, b, n, s, seed):
@@ -700,13 +706,15 @@ def check_moment_values(got, ref, name: str) -> float:
                for a, r in zip(got, ref))
 
 
-def sweep_flops(valid, in_radius: float) -> float:
-    """8 FLOPs (|c|^2 - 2 c.p + |p|^2) for each pair of a center with a
-    valid point of its scan: every one of the N rows is written, and an
-    invalid point contributes to none. ~20 more for each pair inside the
-    radius. Both from this run's inputs."""
-    n = valid.shape[1]
-    return 8.0 * n * float(valid.sum()) + 20.0 * in_radius
+def sweep_cost(points, valid, k: int, radius: float) -> roofline.Cost:
+    """K4's count at k (K3's at k = 0), with the radius moments when
+    radius > 0, from this run's inputs."""
+    b, n, _ = points.shape
+    cost = roofline.sweep_cost(b, n, k, int(valid.sum()))
+    if radius > 0:
+        cost = cost + roofline.moments_cost(b, n, in_radius_pairs(
+            points, valid, points, radius))
+    return cost
 
 
 def check_moments(torch, sw, points, valid, radius):
@@ -721,8 +729,7 @@ def check_moments(torch, sw, points, valid, radius):
                                                         radius), 20)
     plain_ms = timed_ms(torch, lambda: sw.radius_moments_plain(
         points, valid, radius), 2)
-    bound_ms, by = bound(b * n * 13 + b * n * 40,
-                         sweep_flops(valid, float(got[0].sum())))
+    bound_ms, by = bound(sweep_cost(points, valid, 0, radius))
     return dict(name="moments", shape=list(sw.moments_shape(b, n, radius)),
                 valid_points=int(valid.sum()), route="cuda",
                 source=SOURCES["moments"],
@@ -744,10 +751,9 @@ def check_sweep(torch, sw, points, valid, k, radius):
                              f"k={k}")
     if got[0].min() < 0 or got[0].max() >= n:
         raise AssertionError("K4 index out of range")
-    err, in_radius = 0.0, 0.0
+    err = 0.0
     if radius > 0:
         err = check_moment_values(got[2:], ref[2:], "K4")
-        in_radius = float(got[2].sum())
     ms = timed_ms(torch, lambda: sw.fused_sweep_cuda(points, valid, k,
                                                      radius), 20)
     plain_ms = timed_ms(torch, lambda: sw.fused_sweep_plain(points, valid, k,
@@ -759,8 +765,7 @@ def check_sweep(torch, sw, points, valid, k, radius):
         return torch.topk(d, min(k, n), dim=-1, largest=False)
 
     library_ms = timed_ms(torch, library, 10)
-    nbytes = b * n * 13 + b * n * k * 12 + (b * n * 40 if radius > 0 else 0)
-    bound_ms, by = bound(nbytes, sweep_flops(valid, in_radius))
+    bound_ms, by = bound(sweep_cost(points, valid, k, radius))
     return dict(name="sweep", shape=list(sw.sweep_shape(b, n, k, radius)),
                 valid_points=int(valid.sum()), route="cuda",
                 source=SOURCES["sweep"],
@@ -1586,7 +1591,10 @@ def train_phase(torch, kernels, entries, launched, smi, tmp,
     agent_dir = render_train_scene(syn, root)
     cfg_path = os.path.join(tmp, TRAIN_YAML)
     with open(cfg_path, "w") as f:
-        yaml.safe_dump(train_config(root, out), f)
+        # in key order: the training transforms run in the order of the
+        # `transforms:` keys (sorted, the normalization would come before
+        # the 0.3 m voxel downsample and leave ~25 points a frame)
+        yaml.safe_dump(train_config(root, out), f, sort_keys=False)
 
     # -- the CLI, one epoch of each stage, on the card
     t0 = time.perf_counter()
@@ -1763,6 +1771,51 @@ def train_phase(torch, kernels, entries, launched, smi, tmp,
             loss_relerr=loss_relerr, worst_grad_relerr=worst[0],
             worst_grad_tensor=worst[1], tensors=len(grads["cpu"])),
         seconds=time.perf_counter() - t_phase)
+
+
+def mfu_phase(torch, kernels, entries, launched, smi, tmp, engine, pts,
+              valid) -> list:
+    """The MFU report (pipeline/mfu.py, as scripts/mfu_profile_torch.py
+    gives it) on the card: extract, fused odometry and register 256v256 (+ the information matrix) on main's
+    engine and frames 0-1, MFU_TRIALS calls each, and one stage-1 step of
+    the train phase's config (its scene, DeepPointMap-B, S = 2 frames a
+    group) from the trained weights, MFU_TRAIN_TRIALS steps. -> one line a
+    program; raises if a share reads outside (0, 1] or K1 / K2 did not
+    launch."""
+    from deeppointmap_tpu_torch.config import config_from_yaml
+    from deeppointmap_tpu_torch.data.dataset import SlamDatasets
+    from deeppointmap_tpu_torch.models.weights import load_msgpack_weights
+    from deeppointmap_tpu_torch.pipeline import mfu
+    from deeppointmap_tpu_torch.pipeline.train import training_transforms
+    from deeppointmap_tpu_torch.pipeline.trainer import Trainer
+
+    t0 = time.perf_counter()
+    peaks, card = roofline.device_peaks("cuda")
+    kernels.reset_launches()
+    with torch.inference_mode():
+        rows = mfu.measure(mfu.engine_programs(engine, pts[:2], valid[:2]),
+                           MFU_TRIALS, "cuda", peaks, card)
+    args = config_from_yaml(os.path.join(tmp, TRAIN_YAML))
+    rng = np.random.default_rng(0)
+    ds = SlamDatasets(args, data_transforms=training_transforms(args, rng),
+                      rng=rng)
+    trainer = Trainer(args, ds, *load_msgpack_weights(WEIGHTS), rng=rng,
+                      device="cuda")
+    try:
+        rows += mfu.measure([mfu.train_program(
+            trainer, args, mfu.stage1_batch(args, ds, N_PAD))],
+            MFU_TRAIN_TRIALS, "cuda", peaks, card)
+    finally:
+        trainer.close()
+    launches = launches_of(kernels, entries, "mfu", launched)
+    require(launches, ("fps", "knn"), "mfu")
+    bad = [r["program"] for r in rows if not roofline.shares_ok(r)]
+    if bad:
+        raise AssertionError(f"mfu: a share outside (0, 1] in {bad}: the "
+                             f"count claims more than the card can do")
+    seconds = time.perf_counter() - t0
+    return [dict(phase="mfu", card=smi, seconds=seconds, launches=launches,
+                 **row) for row in rows]
 
 
 def same_trajectory_files(out_a: str, out_b: str) -> list:
@@ -2089,7 +2142,7 @@ def main(out_dir: str = "") -> int:
     # the demo-width model (demo, scale): a real scan at the first stage
     dargs = demo_args("", "")
     d_pad, d_np = int(dargs.tpu.encoder_points), list(dargs.encoder.npoint)
-    d_pts, d_valid = demo_scans(syn, max(DEMO_BATCHES), d_pad)
+    d_pts, d_valid = demo_scans(max(DEMO_BATCHES), d_pad)
     d_in = [d_pad] + d_np[:-1]
     for b in DEMO_BATCHES:
         entries.append(check_fps(torch, sampling,
@@ -2661,6 +2714,11 @@ def main(out_dir: str = "") -> int:
 
         # ------------------------------------------------------ train
         emit(train_phase(torch, kernels, entries, launched, smi, tmp))
+
+        # -------------------------------------------------------- mfu
+        for line in mfu_phase(torch, kernels, entries, launched, smi, tmp,
+                              engine, pts, valid):
+            emit(line)
 
         # ----------------------------------------------------- export
         emit(export_phase(torch, kernels, entries, launched, smi, tmp))

@@ -24,6 +24,11 @@ import torch
 
 _MIN_INLIERS = 30
 _TOPK_SEED = 64
+#: the trimmed solve's solves (the reference's fixed 3)
+TRIM_SOLVES = 3
+#: the RANSAC solve's 3-point hypotheses and its refinement radii (m)
+RANSAC_HYPOTHESES = 1024
+RANSAC_REFINE_TAUS = (0.75, 0.5, 0.4)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -54,7 +59,7 @@ def _solve_rt(src, dst, w):
     return R, t
 
 
-def weighted_kabsch(src, dst, weight, valid, num_iter: int = 3,
+def weighted_kabsch(src, dst, weight, valid, num_iter: int = TRIM_SOLVES,
                     std_ratio: float = 3.0):
     """src/dst (K, 3), weight (K,) >= 0, valid (K,) bool ->
     (R (3, 3), t (3,), inlier mask (K,), rmse scalar).
@@ -175,8 +180,8 @@ def hypotheses(w_masked: torch.Tensor, n_hyp: int) -> torch.Tensor:
     return torch.topk(logits, 3, dim=-1).indices
 
 
-def ransac_kabsch(src, dst, weight, valid, n_hyp: int = 1024,
-                  tau: float = 0.5, refine_taus: tuple = (0.75, 0.5, 0.4)):
+def ransac_kabsch(src, dst, weight, valid, n_hyp: int = RANSAC_HYPOTHESES,
+                  tau: float = 0.5, refine_taus: tuple = RANSAC_REFINE_TAUS):
     """Robust drop-in for `weighted_kabsch` (same arguments and returns)
     for correspondence sets with many confident outliers (occluded LiDAR:
     50-80%), where mean + 3 sigma trimming is biased toward identity.

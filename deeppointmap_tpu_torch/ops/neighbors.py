@@ -57,6 +57,21 @@ def pairwise_dist2(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         + sq_norm(dst)[..., None, :]
 
 
+def in_radius_pairs(points, valid, centers, radius: float) -> int:
+    """The number of (center, valid point) pairs within `radius`, by the
+    membership rule K2, K3 and K4 share (pairwise_dist2 <= f32(r^2)): the
+    work of the radius moments (utils/roofline.moments_cost). points
+    (B, N, 3), valid (B, N), centers (B, S, 3). Plain PyTorch on either
+    device, 2048 centers at a time; no kernel launch."""
+    r2 = f32(radius * radius)
+    count = 0
+    for c0 in range(0, centers.shape[1], 2048):
+        d = pairwise_dist2(centers[:, c0:c0 + 2048].float(),
+                           points.float())
+        count += int(((d <= r2) & valid[:, None, :]).sum())
+    return count
+
+
 def _p_feats(points: torch.Tensor) -> torch.Tensor:
     """(B, N, 3) -> moment features [1 | p | xx xy xz yy yz zz] (B, N, 10)."""
     x, y, z = points[..., 0], points[..., 1], points[..., 2]

@@ -98,20 +98,42 @@ def demo_args(root: str, out_dir: str):
         num_workers=2, profile=False))
 
 
-def write_world(root: str, frames: int) -> None:
-    """The demo world (seed 0, default world settings) along a 25 m circle
-    of `frames` frames, 2000 points a scan, as an npz scene; an existing
-    scene0 is kept, as the JAX script keeps it."""
+def _world(frames: int):
+    """(rng, the demo world (seed 0, default world settings), its 25 m
+    circle of `frames` poses): the draws every demo scan starts from."""
     from deeppointmap_tpu_torch.data.synthetic import (circle_trajectory,
-                                                       make_world,
-                                                       write_npz_sequence)
+                                                       make_world)
 
     rng = np.random.default_rng(0)
-    world = make_world(rng)
-    poses = circle_trajectory(frames, radius=25.0)
+    return rng, make_world(rng), circle_trajectory(frames, radius=25.0)
+
+
+def write_world(root: str, frames: int) -> None:
+    """The demo world along a 25 m circle of `frames` frames, 2000 points
+    a scan, as an npz scene; an existing scene0 is kept, as the JAX script
+    keeps it."""
+    from deeppointmap_tpu_torch.data.synthetic import write_npz_sequence
+
+    rng, world, poses = _world(frames)
     if not os.path.isdir(os.path.join(root, "scene0")):
         write_npz_sequence(root, world, poses, rng=rng, max_points=2000)
     print(f"world: {world.shape[0]} pts, {frames} frames", flush=True)
+
+
+def padded_scans(frames: int, n_scans: int, n_pad: int):
+    """The first n_scans scans of write_world's world and circle (the same
+    draws, rendered in memory), raw meters padded to n_pad: (n_scans,
+    n_pad, 3) float32 and validity (n_scans, n_pad)."""
+    from deeppointmap_tpu_torch.data.synthetic import render_scan
+
+    rng, world, poses = _world(frames)
+    pts = np.zeros((n_scans, n_pad, 3), np.float32)
+    valid = np.zeros((n_scans, n_pad), bool)
+    for i in range(n_scans):
+        xyz = render_scan(world, poses[i], rng=rng, max_points=2000)
+        pts[i, :len(xyz)] = xyz
+        valid[i, :len(xyz)] = True
+    return pts, valid
 
 
 def train(args, steps: int, loop_steps: int, weights_out: str,

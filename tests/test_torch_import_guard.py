@@ -24,6 +24,7 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_step.py",
            ROOT / "scripts" / "train_synthetic_demo_torch.py",
            ROOT / "scripts" / "scale_run_torch.py",
            ROOT / "scripts" / "evaluate_torch.py",
+           ROOT / "scripts" / "mfu_profile_torch.py",
            ROOT / "bench_torch.py",
            ROOT / "tests" / "test_torch_ddp_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeppointmap_tpu")
@@ -50,7 +51,7 @@ def test_modules_found():
                  "pipeline.train_utils", "pipeline.trainer",
                  "pipeline.train", "native", "parallel.sharded_extract",
                  "pipeline.full_size", "pipeline.demo", "pipeline.evaluate",
-                 "pipeline.scale"):
+                 "pipeline.scale", "utils.roofline", "pipeline.mfu"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 56
 
