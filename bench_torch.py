@@ -14,7 +14,10 @@ Prints ONE JSON line, last, with bench.py's keys:
                 "demo": {...}},
    "scale": {...}, "device": "<nvidia-smi name, power limit>"}
 and "error" when a block failed; the process then exits 1. Nothing is
-retried and no block takes another's place. Chatter goes to stderr.
+retried and no block takes another's place. Chatter goes to stderr; one
+stdout line before the JSON names the matrix-product policy every block
+runs under (`tpu.bf16` of the shipped configs on the device,
+deeppointmap_tpu_torch/utils/precision.py: "bfloat16" on a card).
 
 Blocks:
   throughput  bench.py `_measure`, mode mt: DeepPointMap-B at full width
@@ -82,6 +85,15 @@ THROUGHPUT_FRAMES = 120
 TRIALS = 5
 ENGINE_ITERS = 30
 BLOCKS = ("throughput", "accuracy", "scale")
+
+
+def matmul_policy(device: str) -> str:
+    """The tpu.bf16 rule's policy for sample.yaml's models on `device`
+    (every block's config sets `tpu.bf16: true`)."""
+    from deeppointmap_tpu_torch.config import config_from_yaml
+    from deeppointmap_tpu_torch.utils.precision import apply_matmul_precision
+
+    return apply_matmul_precision(config_from_yaml(SAMPLE_YAML).tpu, device)
 
 
 def card(device: str) -> str:
@@ -306,6 +318,7 @@ def main(argv=None) -> int:
 
         device = require_device(ns.device)
         line["device"] = card(device)
+        print(f"matmul_policy: {matmul_policy(device)}", flush=True)
     except Exception as e:   # noqa: BLE001 -- reported in the line
         device, errors["device"] = None, f"{type(e).__name__}: {e}"
     run = {"throughput": lambda: throughput(device, ns.out, ns.mode),

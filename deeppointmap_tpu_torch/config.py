@@ -12,9 +12,10 @@ port reads the keys of its slices (`encoder_points`, `reg_buckets`,
 `robust_register`, `sequence_parallel`, `odometer_pipeline_depth`,
 `staleness_fallback`, `staleness_fallback_frac`, `agent_platform`,
 `encoder_bf16` (the encoder's feature path in bfloat16 on a CUDA device,
-models/encoder.py), and for training `remat`, `data_parallel`) and ignores
-the rest: the neighbour grades (every query of the port is exact but
-K4's), `bf16` (the port computes float32 with TF32 off) and
+models/encoder.py), `bf16` (the network's matrix products with bfloat16
+operands and float32 accumulation on a CUDA device, utils/precision.py),
+and for training `remat`, `data_parallel`) and ignores the rest: the
+neighbour grades (every query of the port is exact but K4's) and
 `checkpointer` (torch.save). PyYAML is imported only where a YAML file is
 read. The training CLI (pipeline/train.py) reads the same YAML trees as
 the JAX package's: configs/train/example.yaml loads as it is.

@@ -10,6 +10,14 @@ epsilon, 1e-6.
 encoder's feature path under `tpu.encoder_bf16` (models/encoder.py), where
 `linear_bf16` and `layer_norm_bf16` round where Flax's `nn.Dense` and
 `nn.LayerNorm` with `dtype=bfloat16` do. Parameters stay float32.
+
+`Linear` and `MultiHeadAttention` take the `tpu.bf16` rule
+(utils/precision.py) from their `matmul_policy`, which the engine and the
+trainer set on the whole model: under "bfloat16" their float32 products
+take bfloat16 operands and return float32; under the two float32 policies
+they are F.linear and torch.bmm, whose results are bit-equal to the einsum
+attention the port ran before the rule
+(tests/test_torch_precision_cuda.py, on the CPU and the card).
 """
 
 from __future__ import annotations
@@ -21,7 +29,20 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from deeppointmap_tpu_torch.utils import precision
+
 LN_EPS = 1e-6
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose product takes the model's matmul policy (Flax's
+    `nn.Dense` at default precision)."""
+
+    matmul_policy = precision.UNCHANGED
+
+    def forward(self, x):
+        return precision.linear(x, self.weight, self.bias,
+                                self.matmul_policy)
 
 
 class MLP(nn.Module):
@@ -34,7 +55,7 @@ class MLP(nn.Module):
         self.n = len(channels)
         self.drop_last_act = drop_last_act
         for i, ch in enumerate(channels):
-            self.add_module(f"dense{i}", nn.Linear(in_channel, ch, bias=bias))
+            self.add_module(f"dense{i}", Linear(in_channel, ch, bias=bias))
             self.add_module(f"norm{i}", nn.LayerNorm(ch, eps=LN_EPS))
             in_channel = ch
 
@@ -74,15 +95,19 @@ def layer_norm_bf16(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     """torch `nn.MultiheadAttention` arithmetic (packed q|k|v in-projection)
-    written out with einsum and softmax as in the JAX package. `key_valid`
-    (B, N_k) masks logits to -1e9; every row has a valid key."""
+    written out as in the JAX package: the projections, then the logits and
+    attn.V as batched products of contiguous (B * H, N, d) operands, under
+    the module's `matmul_policy`. `key_valid` (B, N_k) masks logits to
+    -1e9; every row has a valid key."""
+
+    matmul_policy = precision.UNCHANGED
 
     def __init__(self, emb_dim: int, num_heads: int = 8):
         super().__init__()
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * emb_dim, emb_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * emb_dim))
-        self.out_proj = nn.Linear(emb_dim, emb_dim)
+        self.out_proj = Linear(emb_dim, emb_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, q, k, v, key_valid=None):
@@ -91,16 +116,24 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         d = c // h
         w, bias = self.in_proj_weight, self.in_proj_bias
-        q_p = F.linear(q, w[:c], bias[:c]).reshape(b, n_q, h, d)
-        k_p = F.linear(k, w[c:2 * c], bias[c:2 * c]).reshape(b, n_k, h, d)
-        v_p = F.linear(v, w[2 * c:], bias[2 * c:]).reshape(b, n_k, h, d)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / math.sqrt(d)
+        policy = self.matmul_policy
+
+        def heads(x, rows, part):
+            y = precision.linear(x, w[part * c:(part + 1) * c],
+                                 bias[part * c:(part + 1) * c], policy)
+            return y.reshape(b, rows, h, d).transpose(1, 2).reshape(
+                b * h, rows, d)
+
+        q_p, k_p, v_p = heads(q, n_q, 0), heads(k, n_k, 1), heads(v, n_k, 2)
+        logits = precision.bmm(q_p, k_p.transpose(1, 2), policy) \
+            / math.sqrt(d)
+        logits = logits.reshape(b, h, n_q, n_k)
         if key_valid is not None:
             logits = torch.where(key_valid[:, None, None, :], logits,
                                  torch.full_like(logits, -1e9))
-        attn = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v_p).reshape(b, n_q, c)
-        return self.out_proj(out)
+        attn = torch.softmax(logits, dim=-1).reshape(b * h, n_q, n_k)
+        out = precision.bmm(attn, v_p, policy).reshape(b, h, n_q, d)
+        return self.out_proj(out.transpose(1, 2).reshape(b, n_q, c))
 
 
 def sine_pos_embedding(xyz: torch.Tensor, emb_dim: int,

@@ -6,6 +6,11 @@ Descriptors are channel-last (tokens, in_channel + 3) with xyz in the last
 `tpu.robust_register` replaces the trimmed Kabsch solve with the RANSAC
 one (ops/kabsch.ransac_kabsch). `train_forward` is the training entry
 point (models/loss.py consumes its dict).
+
+`matmul_policy` (utils/precision.py, set on every layer by the engine or
+the trainer) governs the heads, the attention and the similarity product;
+the products over x, y, z (train_forward's GT moves) and the solve stay
+float32.
 """
 
 from __future__ import annotations
@@ -14,11 +19,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from deeppointmap_tpu_torch.models.common import (LN_EPS, MultiHeadAttention,
+from deeppointmap_tpu_torch.models.common import (LN_EPS, Linear,
+                                                  MultiHeadAttention,
                                                   sine_pos_embedding)
 from deeppointmap_tpu_torch.ops.kabsch import (ransac_kabsch, top_k,
                                                weighted_kabsch)
 from deeppointmap_tpu_torch.ops.neighbors import group_points
+from deeppointmap_tpu_torch.utils import precision
 
 _CONF_TOPK = 30  # confidence = mean of the first 30 inlier confidences
                  # (reference: system/modules/utils.py:18)
@@ -33,8 +40,8 @@ class DescriptorAttentionLayer(nn.Module):
         super().__init__()
         self.self_attn = MultiHeadAttention(emb_dim, num_heads)
         self.cross_attn = MultiHeadAttention(emb_dim, num_heads)
-        self.mlp0 = nn.Linear(emb_dim, emb_dim)
-        self.mlp1 = nn.Linear(emb_dim, emb_dim)
+        self.mlp0 = Linear(emb_dim, emb_dim)
+        self.mlp1 = Linear(emb_dim, emb_dim)
         self.norm1 = nn.LayerNorm(emb_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(emb_dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(emb_dim, eps=LN_EPS)
@@ -60,11 +67,11 @@ class OffsetHead(nn.Module):
 
     def __init__(self, emb_dim: int, coor_dim: int = 3):
         super().__init__()
-        self.mlp0 = nn.Linear(emb_dim, emb_dim // 2)
-        self.mlp1 = nn.Linear(emb_dim // 2, emb_dim // 4)
-        self.mlp2 = nn.Linear(emb_dim // 4, emb_dim // 8)
-        self.downsample = nn.Linear(emb_dim, emb_dim // 8)
-        self.head = nn.Linear(emb_dim // 8, coor_dim)
+        self.mlp0 = Linear(emb_dim, emb_dim // 2)
+        self.mlp1 = Linear(emb_dim // 2, emb_dim // 4)
+        self.mlp2 = Linear(emb_dim // 4, emb_dim // 8)
+        self.downsample = Linear(emb_dim, emb_dim // 8)
+        self.head = Linear(emb_dim // 8, coor_dim)
 
     def forward(self, x):
         h = self.mlp2(F.relu(self.mlp1(F.relu(self.mlp0(x)))))
@@ -77,10 +84,10 @@ class OverlapHead(nn.Module):
 
     def __init__(self, emb_dim: int):
         super().__init__()
-        self.mlp0 = nn.Linear(emb_dim, emb_dim)
-        self.mlp1 = nn.Linear(emb_dim, emb_dim)
-        self.proj0 = nn.Linear(2 * emb_dim, 2 * emb_dim)
-        self.proj1 = nn.Linear(2 * emb_dim, 1)
+        self.mlp0 = Linear(emb_dim, emb_dim)
+        self.mlp1 = Linear(emb_dim, emb_dim)
+        self.proj0 = Linear(2 * emb_dim, 2 * emb_dim)
+        self.proj1 = Linear(2 * emb_dim, 1)
 
     def forward(self, src_fea, dst_fea):
         s = self.mlp1(F.relu(self.mlp0(src_fea))).mean(dim=1)
@@ -94,8 +101,8 @@ class HeadMLP(nn.Module):
 
     def __init__(self, in_dim: int, emb_dim: int):
         super().__init__()
-        self.dense0 = nn.Linear(in_dim, emb_dim)
-        self.dense1 = nn.Linear(emb_dim, emb_dim)
+        self.dense0 = Linear(in_dim, emb_dim)
+        self.dense1 = Linear(emb_dim, emb_dim)
 
     def forward(self, x):
         return self.dense1(F.relu(self.dense0(x)))
@@ -103,11 +110,15 @@ class HeadMLP(nn.Module):
 
 class Decoder(nn.Module):
     """Matcher decoder: `correlate`, `registration`, `loop_detection` and
-    `train_forward`."""
+    `train_forward`. `matmul_policy`: utils/precision.py's policy for every
+    governed product of the decoder."""
+
+    matmul_policy = precision.UNCHANGED
 
     def __init__(self, in_channel: int = 128, model_channel: int = 256,
                  attention_layers: int = 3, tau: float = 0.1,
-                 eps_offset: float = 2.0, robust_register: bool = False):
+                 eps_offset: float = 2.0, robust_register: bool = False,
+                 matmul_policy: str = precision.UNCHANGED):
         super().__init__()
         self.tau = tau
         self.eps_offset = eps_offset
@@ -116,7 +127,7 @@ class Decoder(nn.Module):
         self.robust_register = robust_register
         self.model_channel = model_channel
         self.attention_layers = attention_layers
-        self.projection = nn.Linear(in_channel, model_channel)
+        self.projection = Linear(in_channel, model_channel)
         for i in range(attention_layers):
             self.add_module(f"attn{i}",
                             DescriptorAttentionLayer(model_channel))
@@ -124,15 +135,18 @@ class Decoder(nn.Module):
         self.coarse_pairing_head = HeadMLP(in_channel, in_channel)
         self.offset_head = OffsetHead(model_channel * 2)
         self.loop_head = OverlapHead(model_channel)
+        precision.set_policy(self, matmul_policy)
 
     @classmethod
-    def from_config(cls, args) -> "Decoder":
+    def from_config(cls, args,
+                    matmul_policy: str = precision.UNCHANGED) -> "Decoder":
         d = args.decoder
         return cls(in_channel=d.in_channel, model_channel=d.model_channel,
                    attention_layers=d.attention_layers, tau=args.loss.tau,
                    eps_offset=args.loss.eps_offset,
                    robust_register=bool((args.get("tpu") or {}).get(
-                       "robust_register", False)))
+                       "robust_register", False)),
+                   matmul_policy=matmul_policy)
 
     def correlate(self, src_desc, dst_desc, src_valid, dst_valid):
         """(B, M, C+3) x (B, N, C+3) -> correlated (B, M, mc), (B, N, mc)
@@ -163,8 +177,9 @@ class Decoder(nn.Module):
         sp = F.normalize(self.similarity_head(src_fea), dim=-1, eps=1e-12)
         dp = F.normalize(self.similarity_head(dst_fea), dim=-1, eps=1e-12)
         pair_valid = src_valid[:, None] & dst_valid[None, :]
-        sim = torch.where(pair_valid, sp @ dp.T, torch.full((), -1e9,
-                                                            device=sp.device))
+        sim = torch.where(pair_valid,
+                          precision.matmul(sp, dp.T, self.matmul_policy),
+                          torch.full((), -1e9, device=sp.device))
         conf_mat = torch.softmax(sim / self.tau, dim=1) \
             * torch.softmax(sim / self.tau, dim=0) * pair_valid
         conf, flat_idx = top_k(conf_mat.reshape(m * n), num_pairs)

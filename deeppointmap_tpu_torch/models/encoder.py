@@ -22,6 +22,10 @@ encoder casts: the grouped offsets (taken in float32), the residual's
 identity, FeaturePropagation's concat (its 3-NN weights and weighted sum
 stay float32); the output is float32. Geometry stays float32: coordinates,
 sampling, neighbour queries and radius tests are those of the float32 run.
+
+Matrix products (yaml `tpu.bf16`, `matmul_policy`, utils/precision.py):
+under "bfloat16" the float32 features' linear layers take bfloat16
+operands and return float32; bfloat16 features (above) are unchanged by it.
 """
 
 from __future__ import annotations
@@ -31,12 +35,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from deeppointmap_tpu_torch.models.common import MLP, linear_bf16
+from deeppointmap_tpu_torch.models.common import MLP, Linear, linear_bf16
 from deeppointmap_tpu_torch.ops.neighbors import (ball_query, f32,
                                                   group_points, hybrid_query,
                                                   knn)
 from deeppointmap_tpu_torch.ops.sampling import (batched_fps,
                                                  batched_voxel_sample)
+from deeppointmap_tpu_torch.utils import precision
 
 #: grouping methods of the reference Querier (network/encoder/utils.py:
 #: 18-43); '-t3d' suffixes name its CUDA twins and normalize away here
@@ -254,7 +259,8 @@ class Encoder(nn.Module):
     """forward(points (B, N, 3+), valid (B, N)[, sweep]) -> (coor (B, S, 3),
     fea (B, S, out_channel) float32, valid (B, S)). Config fields mirror
     the yaml `encoder:` tree; `act_dtype` ("float32" | "bfloat16") is
-    `tpu.encoder_bf16`."""
+    `tpu.encoder_bf16`; `matmul_policy` is utils/precision.py's policy
+    for the linear layers."""
 
     def __init__(self, npoint=(4096, 1024, 256, 64, 16),
                  radius_list=((0.05, 0.1), (0.1, 0.2), (0.2, 0.4, 0.4),
@@ -264,7 +270,8 @@ class Encoder(nn.Module):
                  in_channel: int = 3, out_channel: int = 128, width: int = 16,
                  expansion: int = 4, upsample_layers: int = 2,
                  bias: bool = True, sample=None, querier: str = "hybrid",
-                 act_dtype: str = "float32"):
+                 act_dtype: str = "float32",
+                 matmul_policy: str = precision.UNCHANGED):
         super().__init__()
         if act_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"act_dtype {act_dtype!r}: use 'float32' or "
@@ -277,7 +284,7 @@ class Encoder(nn.Module):
         self.nsample_list = tuple(tuple(n) for n in nsample_list)
         self.in_channel = in_channel
         self.upsample_layers = upsample_layers
-        self.point_mlp0 = nn.Linear(in_channel, width)
+        self.point_mlp0 = Linear(in_channel, width)
         widths = [width]
         for i in range(len(self.npoint)):
             self.add_module(f"down{i}", Stage(
@@ -292,9 +299,11 @@ class Encoder(nn.Module):
                 fea1_ch + fea2_ch, (up_out, up_out), bias))
             fea2_ch = up_out
             w //= 2
+        precision.set_policy(self, matmul_policy)
 
     @classmethod
-    def from_config(cls, args) -> "Encoder":
+    def from_config(cls, args,
+                    matmul_policy: str = precision.UNCHANGED) -> "Encoder":
         e = args.encoder
         norm = str(e.get("norm", "LN")).lower()
         if norm != "ln":
@@ -327,7 +336,8 @@ class Encoder(nn.Module):
                    bias=e.get("bias", True), sample=tuple(sample),
                    querier=querier,
                    act_dtype="bfloat16" if (args.get("tpu") or {}).get(
-                       "encoder_bf16", False) else "float32")
+                       "encoder_bf16", False) else "float32",
+                   matmul_policy=matmul_policy)
 
     def forward(self, points, valid, sweep=None):
         """sweep: optional (idx (B, N, Ks), dist2 (B, N, Ks)) candidate

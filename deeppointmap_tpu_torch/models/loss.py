@@ -13,6 +13,10 @@ process group (the identity in one process), so each rank divides its own
 sum by the global count: a value returned here is this rank's share, the
 global value is the sum of the shares over the ranks, and so is its
 gradient.
+
+The pairing logits and the top-1 similarity take the `tpu.bf16` rule
+(utils/precision.py) through `policy`; the mahalanobis covariance and
+quadratic form, over x, y, z, stay float32.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.nn import functional as F
+
+from deeppointmap_tpu_torch.utils import precision
 
 ReduceSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -77,13 +83,19 @@ def _count(mask, reduce_sum) -> torch.Tensor:
     return torch.clamp(reduce_sum(mask.float().sum()), min=1.0)
 
 
+def _cosine(src_fea, dst_fea, policy: str):
+    """(B, S, C) x (B, D, C) -> cosine similarities (B, S, D)."""
+    return precision.bmm(_normalize(src_fea),
+                         _normalize(dst_fea).transpose(1, 2), policy)
+
+
 def pairing_loss(src_fea, dst_fea, src_valid, corr_ids, corr_mask, neutral,
-                 tau: float, reduce_sum: ReduceSum = None):
+                 tau: float, reduce_sum: ReduceSum = None,
+                 policy: str = precision.UNCHANGED):
     """Masked InfoNCE over cosine-similarity logits (reference:
     loss.py:113-142)."""
     reduce_sum = reduce_sum or _local
-    logits = torch.einsum("bsc,bdc->bsd", _normalize(src_fea),
-                          _normalize(dst_fea))
+    logits = _cosine(src_fea, dst_fea, policy)
     logits = torch.where(neutral, torch.full_like(logits, -1e8), logits)
     logprobs = torch.log_softmax(logits / tau, dim=-1)
     picked = torch.gather(logprobs, -1, corr_ids[..., None])[..., 0]
@@ -127,13 +139,13 @@ def offset_loss(offset_res, pair_valid, offset_value: str = "euclidean",
 
 
 def top1_pairing_acc(src_fea, dst_fea, src_valid, corr_ids, corr_mask,
-                     reduce_sum: ReduceSum = None):
+                     reduce_sum: ReduceSum = None,
+                     policy: str = precision.UNCHANGED):
     """Top-1 pairing accuracy (reference: loss.py:163-179); a metric, so
     it carries no gradient."""
     reduce_sum = reduce_sum or _local
     with torch.no_grad():
-        sim = torch.einsum("bsc,bdc->bsd", _normalize(src_fea),
-                           _normalize(dst_fea))
+        sim = _cosine(src_fea, dst_fea, policy)
         pred = sim.argmax(dim=-1)
         use = corr_mask & src_valid
         hit = (pred == corr_ids) & use
@@ -142,10 +154,11 @@ def top1_pairing_acc(src_fea, dst_fea, src_valid, corr_ids, corr_mask,
 
 def registration_loss(cfg: LossConfig, src_global, dst_global, src_valid,
                       dst_valid, dec_out: Dict,
-                      reduce_sum: ReduceSum = None) -> Dict:
+                      reduce_sum: ReduceSum = None,
+                      policy: str = precision.UNCHANGED) -> Dict:
     """The full symmetric loss. `src_global` / `dst_global` are the
     descriptors' GT-frame coordinates (B, S, 3) / (B, D, 3); `dec_out` is
-    Decoder.train_forward's dict."""
+    Decoder.train_forward's dict; `policy` the decoder's matmul policy."""
     ids_s, mask_s, neu_s = make_pairs(src_global, dst_global,
                                       src_valid, dst_valid, cfg.eps_positive)
     ids_d, mask_d, neu_d = make_pairs(dst_global, src_global,
@@ -156,7 +169,7 @@ def registration_loss(cfg: LossConfig, src_global, dst_global, src_valid,
     sp, dp = dec_out["src_pairing_fea"], dec_out["dst_pairing_fea"]
     sc, dc = dec_out["src_coarse_fea"], dec_out["dst_coarse_fea"]
     pair = lambda a, b, valid, ids, mask, neu: pairing_loss(
-        a, b, valid, ids, mask, neu, cfg.tau, reduce_sum)
+        a, b, valid, ids, mask, neu, cfg.tau, reduce_sum, policy)
     l_pair = (pair(sp, dp, src_valid, ids_s, mask_s, no_neutral_s)
               + pair(dp, sp, dst_valid, ids_d, mask_d, no_neutral_d)) / 2
     l_coarse = (pair(sc, dc, src_valid, ids_s, mask_s, neu_s)
@@ -165,9 +178,10 @@ def registration_loss(cfg: LossConfig, src_global, dst_global, src_valid,
                          cfg.offset_value, reduce_sum)
              + offset_loss(dec_out["dst_offset_res"], dec_out["pair_valid"],
                            cfg.offset_value, reduce_sum)) / 2
-    acc = (top1_pairing_acc(sp, dp, src_valid, ids_s, mask_s, reduce_sum)
-           + top1_pairing_acc(dp, sp, dst_valid, ids_d, mask_d,
-                              reduce_sum)) / 2
+    acc = (top1_pairing_acc(sp, dp, src_valid, ids_s, mask_s, reduce_sum,
+                            policy)
+           + top1_pairing_acc(dp, sp, dst_valid, ids_d, mask_d, reduce_sum,
+                              policy)) / 2
 
     loss = cfg.lambda_p * l_pair + cfg.lambda_c * l_coarse \
         + cfg.lambda_o * l_off

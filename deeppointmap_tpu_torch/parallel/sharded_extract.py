@@ -25,6 +25,11 @@ interpreter lock; PERF.md).
 Online SLAM stays on one device (one scan at a time); this path is for the
 embarrassingly parallel batch case. Inputs are float32, as in the JAX
 package: no int16 upload quantization.
+
+Each replica takes the `tpu.bf16` rule for its own device
+(utils/precision.py): `tpu_cfg` is the config's `tpu:` tree (None = the
+defaults, bf16 on), so a card's replica runs "bfloat16" and a CPU replica
+"unchanged".
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from deeppointmap_tpu_torch import kernels
 from deeppointmap_tpu_torch.data.preprocess import preprocess
+from deeppointmap_tpu_torch.utils import precision
 
 
 def _devices(devices: Optional[Sequence]) -> list:
@@ -60,7 +66,7 @@ class ShardedExtract:
     devices. Points are normalized, or raw meters with `preprocess_cfg`."""
 
     def __init__(self, encoder, enc_state, devices, coor_scale: float,
-                 preprocess_cfg=None):
+                 preprocess_cfg=None, tpu_cfg=None):
         self.devices = _devices(devices)
         if any(d.type == "cuda" for d in self.devices):
             kernels.strict_matmuls()
@@ -70,6 +76,8 @@ class ShardedExtract:
         for dev in self.devices:
             rep = copy.deepcopy(encoder).to(dev)
             rep.load_state_dict(enc_state)
+            precision.set_policy(
+                rep, precision.apply_matmul_precision(tpu_cfg, dev))
             self.replicas.append(rep.eval())
 
     def _launch(self, i: int, points: np.ndarray, valid: np.ndarray):
@@ -146,19 +154,22 @@ class ShardedExtract:
 
 
 def make_sharded_extract(encoder, enc_state, devices, coor_scale: float,
-                         preprocess_cfg=None) -> ShardedExtract:
+                         preprocess_cfg=None,
+                         tpu_cfg=None) -> ShardedExtract:
     """Build `extract(points (B, P, 3), valid (B, P)) -> (desc, desc_valid,
     pts_valid)` with B split over `devices` (a list of torch devices; None
     = every visible CUDA device). `encoder`: a models.encoder.Encoder of
     the architecture, `enc_state`: its state dict. B must be a multiple of
-    the device count (pad with invalid scans otherwise)."""
+    the device count (pad with invalid scans otherwise). `tpu_cfg`: the
+    `tpu:` tree whose `bf16` sets each replica's matrix-product policy
+    (module docstring)."""
     return ShardedExtract(encoder, enc_state, devices, coor_scale,
-                          preprocess_cfg)
+                          preprocess_cfg, tpu_cfg)
 
 
 def extract_sequence(encoder, enc_state, devices, coor_scale: float,
                      scans, valids, preprocess_cfg=None,
-                     batch_per_device: int = 1):
+                     batch_per_device: int = 1, tpu_cfg=None):
     """Descriptors for a whole sequence of padded scans: an extractor
     built as make_sharded_extract builds it, then `ShardedExtract.sequence`.
 
@@ -166,5 +177,5 @@ def extract_sequence(encoder, enc_state, devices, coor_scale: float,
     `batch_per_device` scans a device, padding the tail with invalid
     scans. -> (desc (N, K, C+3), desc_valid (N, K), pts_valid (N, P))."""
     return make_sharded_extract(encoder, enc_state, devices, coor_scale,
-                                preprocess_cfg).sequence(scans, valids,
-                                                         batch_per_device)
+                                preprocess_cfg, tpu_cfg).sequence(
+                                    scans, valids, batch_per_device)

@@ -119,7 +119,7 @@ def registration_metrics(encoder, decoder, loss_cfg: LossConfig,
     src_global = torch.einsum("bij,bnj->bni", batch.gt_R, xyz) \
         + batch.gt_t[:, None, :]
     return registration_loss(loss_cfg, src_global, xyz, src_valid, dst_valid,
-                             out, reduce_sum)
+                             out, reduce_sum, decoder.matmul_policy)
 
 
 def loop_metrics(encoder, decoder, batch: LoopBatch, coor_scale: float = 60.0,

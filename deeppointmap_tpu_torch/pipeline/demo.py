@@ -33,9 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def demo_args(root: str, out_dir: str):
     """The demo model's Config over the port's `tpu:` defaults, with the
-    trees of scripts/train_synthetic_demo.demo_args. `tpu.bf16` is kept for
-    one YAML to serve both packages and read by neither part of the port
-    (it sets XLA's precision; TF32 stays off here)."""
+    trees of scripts/train_synthetic_demo.demo_args, `tpu.bf16` included
+    (the network's products in bfloat16 on a card, utils/precision.py)."""
     return config_from_dict(dict(
         dataset=[dict(name="synthetic", root=root, scenes=["scene0"],
                       reader=dict(type="npz"))],

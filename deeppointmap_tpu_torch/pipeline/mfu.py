@@ -6,7 +6,9 @@ chained timing that sets one against the other.
 Programs, as the JAX package's scripts/mfu_profile.py: extract
 (InferenceEngine._extract_impl), fused odometry (_odometry_impl), register
 with the information matrix (_register_info) and one stage-1 training step
-(Trainer.train_step).
+(Trainer.train_step). Each is counted under its models' matrix-product
+policy (utils/precision.py: the network's products at the bfloat16 rate
+under "bfloat16"), which its report row names as `matmul_policy`.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ TRAIN_FRAMES = 2
 
 class Program(NamedTuple):
     """A program of the report: its row name, a zero-argument call, its
-    count by component and its own bytes (roofline.io_bytes)."""
+    count by component, its own bytes (roofline.io_bytes) and its models'
+    matmul policy."""
     name: str
     call: Callable
     parts: Dict[str, roofline.Cost]
     nbytes: int
+    policy: str
 
 
 def scan_counts(pre, points, valid, filtered) -> roofline.ScanCounts:
@@ -79,6 +83,7 @@ def engine_programs(engine, points: np.ndarray, valid: np.ndarray) -> list:
     from deeppointmap_tpu_torch.models.decoder import num_pairs_for
 
     args, pre = engine.args, engine.preprocess_cfg
+    policy = engine.decoder.matmul_policy
     if pre is None:
         raise ValueError("engine_programs takes an engine with the device "
                          "chain (raw-meter scans)")
@@ -114,17 +119,17 @@ def engine_programs(engine, points: np.ndarray, valid: np.ndarray) -> list:
     io = roofline.io_bytes
     return [
         Program("extract (preprocess+encoder)", extract,
-                roofline.extract_cost(args, n_pad, counts, pre),
-                io(pd, vd, engine.encoder, extracted)),
+                roofline.extract_cost(args, n_pad, counts, pre, policy),
+                io(pd, vd, engine.encoder, extracted), policy),
         Program("fused odometry (extract+reg+info)", odometry,
                 roofline.odometry_cost(args, n_pad, counts, tokens, npairs,
-                                       pre),
+                                       pre, policy),
                 io(pd, vd, cand, engine.encoder, engine.decoder,
-                   odometry_out)),
+                   odometry_out), policy),
         Program(f"register {tokens}v{tokens} (+info)", register,
                 roofline.register_cost(args, tokens, n_pad, counts.valid[0],
-                                       npairs),
-                io(cand, new, engine.decoder, register_out)),
+                                       npairs, policy),
+                io(cand, new, engine.decoder, register_out), policy),
     ]
 
 
@@ -151,23 +156,24 @@ def train_program(trainer, args, batch) -> Program:
     batch, the weights and the optimizer's state once and writes the
     trained weights and the state once."""
     b, s, p = batch.valid.shape
+    policy = trainer.decoder.matmul_policy
     parts = roofline.train_step_cost(
         args, b, s, p, [int(v) for v in batch.valid.reshape(b * s, p)
                         .sum(axis=1)],
-        int(args.train.registration.get("max_pairs", 1024)))
+        int(args.train.registration.get("max_pairs", 1024)), policy)
     metrics = trainer.train_step(batch)
     trained = [q for g in trainer.optimizer.param_groups for q in g["params"]]
     state = roofline.io_bytes(trainer.optimizer.state)
     nbytes = roofline.io_bytes(batch, trainer.encoder, trainer.decoder,
                                trained, metrics) + 2 * state
     return Program(f"stage-1 train step (S={s}, b={b})",
-                   lambda: trainer.train_step(batch), parts, nbytes)
+                   lambda: trainer.train_step(batch), parts, nbytes, policy)
 
 
 def measure(programs, trials: int, device, peaks, card) -> list:
     """Report rows of Programs: each timed by steady_ms (on a card) and
-    set against `peaks`."""
-    return [roofline.report_row(p.name, p.parts, p.nbytes,
-                                steady_ms(p.call, trials, device), peaks,
-                                card)
+    set against `peaks`, with its `matmul_policy`."""
+    return [dict(roofline.report_row(p.name, p.parts, p.nbytes,
+                                     steady_ms(p.call, trials, device),
+                                     peaks, card), matmul_policy=p.policy)
             for p in programs]

@@ -14,9 +14,12 @@ More than one GPU: one process per device, joined here
 N --process_id i`, or from torchrun's environment when no address is
 given; `tpu.data_parallel: auto` then spans the group.
 
-`train.auto_cast` and `tpu.bf16` do not apply: the port trains in float32
-with TF32 off, but for the encoder's activations under `tpu.encoder_bf16`
-on a CUDA device (parameters and optimizer state stay float32).
+`tpu.bf16` (default true) runs the network's matrix products and their
+gradients with bfloat16 operands and float32 accumulation on a CUDA
+device, float32 elsewhere or when false (utils/precision.py); the
+encoder's activations are bfloat16 under `tpu.encoder_bf16` on a CUDA
+device; parameters and optimizer state stay float32 and TF32 stays off.
+`train.auto_cast` does not apply (the JAX package ignores it too).
 `tpu.checkpointer` does not apply either: checkpoints are torch.save files
 (pipeline/trainer.py).
 """

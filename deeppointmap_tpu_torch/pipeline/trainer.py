@@ -19,6 +19,13 @@ process per device, `tpu.data_parallel: "auto"` = the process group's
 world size; every rank builds the same global batch and steps on its
 slice. Only rank 0 writes files.
 
+Matrix products: the trainer resolves the `tpu.bf16` rule for its device
+(utils/precision.py) and gives it to both models, so that on a card the
+network's products and their gradients take bfloat16 operands and float32
+accumulation, as the JAX package's step does on the TPU (parameters, the
+optimizer's state and the loss's reductions stay float32);
+`matmul_policy` forces a policy.
+
 Besides metrics.jsonl (running means every `log_cycle` steps) every step
 appends one line to steps.jsonl: the step's metrics, the host seconds
 spent building the batch, the seconds of the step (ending in the metrics'
@@ -53,6 +60,7 @@ from deeppointmap_tpu_torch.pipeline.common import load_weights, save_weights
 from deeppointmap_tpu_torch.pipeline.train_utils import (Recorder,
                                                          build_optimizer,
                                                          build_schedule)
+from deeppointmap_tpu_torch.utils import precision
 
 logger = logging.getLogger(__name__)
 
@@ -79,15 +87,17 @@ def newest_checkpoint(path: str) -> str:
 class Trainer:
     def __init__(self, args, dataset, enc_sd, dec_sd,
                  rng: Optional[np.random.Generator] = None,
-                 device="cuda"):
+                 device="cuda", matmul_policy=None):
         self.args = args
         self.cfg = args.train
         self.dataset = dataset
         self.device = torch.device(device)
         if self.device.type == "cuda":
             kernels.strict_matmuls()
-        self.encoder = Encoder.from_config(args)
-        self.decoder = Decoder.from_config(args)
+        self.matmul_policy = precision.resolve(matmul_policy, args.get("tpu"),
+                                               self.device)
+        self.encoder = Encoder.from_config(args, self.matmul_policy)
+        self.decoder = Decoder.from_config(args, self.matmul_policy)
         self.encoder.load_state_dict(enc_sd)
         self.decoder.load_state_dict(dec_sd)
         self.encoder.to(self.device)

@@ -45,6 +45,7 @@ from deeppointmap_tpu_torch.models.decoder import Decoder, num_pairs_for
 from deeppointmap_tpu_torch.models.encoder import Encoder
 from deeppointmap_tpu_torch.ops.infomat import information_matrix
 from deeppointmap_tpu_torch.ops.neighbors import f32
+from deeppointmap_tpu_torch.utils import precision
 
 logger = logging.getLogger(__name__)
 
@@ -93,10 +94,13 @@ class InferenceEngine:
     models.decoder.Decoder (models/weights.py turns a JAX checkpoint into
     them). preprocess_cfg: when set, extract/odometry take RAW-METER padded
     points and the filter chain runs on the device (data/preprocess.py);
-    when None, inputs are already normalized."""
+    when None, inputs are already normalized. matmul_policy: the models'
+    `tpu.bf16` policy (utils/precision.py); None takes the rule's for
+    args.tpu on `device` ("bfloat16" on a card under every shipped
+    config, "unchanged" on the CPU), a policy forces it."""
 
     def __init__(self, args, enc_state, dec_state, preprocess_cfg=None,
-                 device="cuda"):
+                 device="cuda", matmul_policy=None):
         self.device = torch.device(device)
         self._upload_stream = self._fetch_stream = None
         if self.device.type == "cuda":
@@ -137,8 +141,10 @@ class InferenceEngine:
                     "exceeds the +-%.1f m quantization range", max_dis, qmax)
                 self.upload_quant = "none"
         self.infomat_stride = int(tpu.get("infomat_stride", 1))
-        self.encoder = Encoder.from_config(args)
-        self.decoder = Decoder.from_config(args)
+        self.matmul_policy = precision.resolve(matmul_policy, tpu,
+                                               self.device)
+        self.encoder = Encoder.from_config(args, self.matmul_policy)
+        self.decoder = Decoder.from_config(args, self.matmul_policy)
         self.encoder.load_state_dict(enc_state)
         self.decoder.load_state_dict(dec_state)
         self.encoder.to(self.device).eval()

@@ -8,7 +8,9 @@ call as nothing, so its count is not one the port can be held to.
 
 A count is a `Cost`: operations priced at the float32 rate (outside the
 tensor cores: TF32 is off in the port), operations priced at the bfloat16
-rate (the encoder's matrix products under `tpu.encoder_bf16`), bytes, and
+rate (the network's matrix products under the `tpu.bf16` rule's
+"bfloat16" policy, utils/precision.py, and the encoder's under
+`tpu.encoder_bf16`), bytes, and
 the share of the operations that are matrix products (what
 `torch.utils.flop_counter.FlopCounterMode` counts). Each kernel, layer or
 product reads its inputs once and writes its outputs once. A program's
@@ -29,7 +31,13 @@ Per kernel:
   sweep (K4, K3)    every point of the scan a center: the kNN's 8 a pair;
                     K3 is the sweep with no graph out (k = 0).
 Dense, at the widths the config gives:
-  linear            2 M N K (the bias add is not counted).
+  linear            2 M N K (the bias add is not counted) at its `prec`:
+                    FLOAT32; RULE, the tpu.bf16 rule (the bfloat16 rate,
+                    float32 activations read and written: the operands are
+                    rounded from them); BF16_ACT, tpu.encoder_bf16 (the
+                    bfloat16 rate, 2-byte activations).
+                    The products over x, y, z, the solve's and the
+                    information matrix's stay float32.
   attention         its two products, 2 Mq Nk C each, and 6 an element of
                     the logits (the scale and the softmax).
   LayerNorm         7 an element; softmax 5 an element.
@@ -48,6 +56,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from deeppointmap_tpu_torch.ops import kabsch
+from deeppointmap_tpu_torch.utils import precision
 
 
 class Peaks(NamedTuple):
@@ -70,6 +79,12 @@ FLOPS_LAYER_NORM = 7.0
 FLOPS_SOFTMAX = 5.0
 FLOPS_LOGIT = 1.0 + FLOPS_SOFTMAX
 F32 = 4
+#: a dense product's precision (`prec`): its rate and its activations'
+#: bytes. FLOAT32: float32; RULE: the tpu.bf16 rule's bfloat16 operands
+#: rounded from float32 activations; BF16_ACT: tpu.encoder_bf16's bfloat16
+#: activations
+FLOAT32, RULE, BF16_ACT = "float32", "rule", "bf16_act"
+ACT_BYTES = {FLOAT32: F32, RULE: F32, BF16_ACT: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,23 +208,32 @@ def sweep_cost(b: int, n: int, k: int, valid_points: int) -> Cost:
 
 
 # --------------------------------------------------------------- dense
-def linear(rows: int, n_in: int, n_out: int, bias: bool = True,
-           bf16: bool = False) -> Cost:
-    """One nn.Linear on `rows` rows; bf16: the product in bfloat16 (the
-    activations 2 bytes, the float32 weights read once)."""
-    mm = 2.0 * rows * n_in * n_out
-    act = 2 if bf16 else F32
-    nbytes = act * rows * (n_in + n_out) + F32 * n_in * n_out \
-        + (F32 * n_out if bias else 0)
-    return Cost(flops=0.0 if bf16 else mm, bf16_flops=mm if bf16 else 0.0,
-                bytes=nbytes, matmul_flops=mm)
-
-
-def matmul(m: int, k: int, n: int, batch: int = 1) -> Cost:
-    """A float32 product (batch, m, k) @ (batch, k, n)."""
-    mm = 2.0 * batch * m * n * k
-    return Cost(flops=mm, bytes=F32 * batch * (m * k + k * n + m * n),
+def _product(mm: float, act_elems: float, weight_bytes: float,
+             prec: str) -> Cost:
+    """mm product operations at the rate of `prec`, act_elems activations
+    at its width and weight_bytes of float32 weights."""
+    if prec not in ACT_BYTES:
+        raise ValueError(f"product precision {prec!r}: use one of "
+                         f"{tuple(ACT_BYTES)}")
+    fast = prec != FLOAT32
+    return Cost(flops=0.0 if fast else mm, bf16_flops=mm if fast else 0.0,
+                bytes=ACT_BYTES[prec] * act_elems + weight_bytes,
                 matmul_flops=mm)
+
+
+def linear(rows: int, n_in: int, n_out: int, bias: bool = True,
+           prec: str = FLOAT32) -> Cost:
+    """One nn.Linear on `rows` rows at `prec`; its float32 weights are read
+    once whatever the precision."""
+    return _product(2.0 * rows * n_in * n_out, rows * (n_in + n_out),
+                    F32 * (n_in * n_out + (n_out if bias else 0)), prec)
+
+
+def matmul(m: int, k: int, n: int, batch: int = 1,
+           prec: str = FLOAT32) -> Cost:
+    """A product (batch, m, k) @ (batch, k, n) at `prec`."""
+    return _product(2.0 * batch * m * n * k,
+                    batch * (m * k + k * n + m * n), 0.0, prec)
 
 
 def layer_norm(rows: int, c: int) -> Cost:
@@ -222,23 +246,25 @@ def softmax(rows: int, c: int) -> Cost:
 
 
 def mlp(rows: int, n_in: int, channels, bias: bool = True,
-        bf16: bool = False) -> Cost:
+        prec: str = FLOAT32) -> Cost:
     """models/common.MLP: Linear + LayerNorm a layer (the LayerNorm's
     statistics in float32 either way)."""
     out = Cost()
     for ch in channels:
-        out = out + linear(rows, n_in, ch, bias, bf16) + layer_norm(rows, ch)
+        out = out + linear(rows, n_in, ch, bias, prec) + layer_norm(rows, ch)
         n_in = ch
     return out
 
 
-def attention(b: int, mq: int, nk: int, c: int, heads: int) -> Cost:
+def attention(b: int, mq: int, nk: int, c: int, heads: int,
+              prec: str = FLOAT32) -> Cost:
     """models/common.MultiHeadAttention: the q / k / v and output
     projections, the two products over the heads and the scaled softmax."""
     logits = b * heads * mq * nk
-    proj = linear(b * mq, c, c) * 2 + linear(b * nk, c, c) * 2
-    return proj + matmul(mq, c // heads, nk, b * heads) \
-        + matmul(mq, nk, c // heads, b * heads) \
+    proj = linear(b * mq, c, c, prec=prec) * 2 \
+        + linear(b * nk, c, c, prec=prec) * 2
+    return proj + matmul(mq, c // heads, nk, b * heads, prec) \
+        + matmul(mq, nk, c // heads, b * heads, prec) \
         + Cost(flops=FLOPS_LOGIT * logits, bytes=2 * F32 * logits)
 
 
@@ -267,22 +293,23 @@ def graph_ks(e) -> list:
     return out
 
 
-def encoder_dense(e, b: int, n: int, bf16: bool = False) -> Dict[str, Cost]:
-    """The encoder's linear layers and LayerNorms on b scans of n points,
-    by module: point_mlp0, down{i} (SetAbstraction and InvResMLP blocks),
-    up{i} (FeaturePropagation)."""
+def encoder_dense(e, b: int, n: int,
+                  prec: str = FLOAT32) -> Dict[str, Cost]:
+    """The encoder's linear layers and LayerNorms on b scans of n points
+    at `prec`, by module: point_mlp0, down{i} (SetAbstraction and InvResMLP
+    blocks), up{i} (FeaturePropagation)."""
     bias = bool(e.get("bias", True))
     width, npoint = int(e.width), list(e.npoint)
-    out = {"point_mlp0": linear(b * n, int(e.in_channel), width, True, bf16)}
+    out = {"point_mlp0": linear(b * n, int(e.in_channel), width, True, prec)}
     widths = [width]
     for i, s in enumerate(npoint):
         c = widths[-1]
         ns = e.nsample_list[i]
-        cost = mlp(b * s * ns[0], c + 3, [2 * c], bias, bf16)
+        cost = mlp(b * s * ns[0], c + 3, [2 * c], bias, prec)
         for k in ns[1:len(e.radius_list[i])]:
-            cost = cost + mlp(b * s * k, 2 * c + 3, [2 * c], bias, bf16) \
+            cost = cost + mlp(b * s * k, 2 * c + 3, [2 * c], bias, prec) \
                 + mlp(b * s, 2 * c, [2 * c * int(e.expansion), 2 * c], bias,
-                      bf16)
+                      prec)
         out[f"down{i}"] = cost
         widths.append(2 * c)
     n_lv = len(npoint)
@@ -291,7 +318,7 @@ def encoder_dense(e, b: int, n: int, bf16: bool = False) -> Dict[str, Cost]:
         up = max(int(e.out_channel), w // 2)
         fea1 = widths[n_lv - i - 1]
         out[f"up{i}"] = mlp(b * npoint[n_lv - i - 2], fea1 + fea2, [up, up],
-                            bias, bf16)
+                            bias, prec)
         fea2, w = up, w // 2
     return out
 
@@ -341,32 +368,35 @@ def preprocess_sweep(pre, n: int, crop_valid, in_radius: int) -> Cost:
 
 
 # -------------------------------------------------------------- decoder
-def correlate(d, b: int, m: int, n: int) -> Dict[str, Cost]:
+def correlate(d, b: int, m: int, n: int,
+              prec: str = FLOAT32) -> Dict[str, Cost]:
     """Decoder.correlate: the projection of both sides and each attention
     layer (self-attention on each side, cross-attention both ways, the
     MLP, three LayerNorms a side)."""
     c, mc = int(d.in_channel), int(d.model_channel)
-    out = {"projection": linear(b * (m + n), c, mc)}
+    out = {"projection": linear(b * (m + n), c, mc, prec=prec)}
     for i in range(int(d.attention_layers)):
         cost = Cost()
         for q, kv in ((m, m), (n, n), (m, n), (n, m)):
-            cost = cost + attention(b, q, kv, mc, 8)
+            cost = cost + attention(b, q, kv, mc, 8, prec)
         rows = b * (m + n)
-        cost = cost + linear(rows, mc, mc) * 2 + layer_norm(rows, mc) * 3
+        cost = cost + linear(rows, mc, mc, prec=prec) * 2 \
+            + layer_norm(rows, mc) * 3
         out[f"attn{i}"] = cost
     return out
 
 
-def head_mlp(rows: int, n_in: int, emb: int) -> Cost:
-    return linear(rows, n_in, emb) + linear(rows, emb, emb)
+def head_mlp(rows: int, n_in: int, emb: int, prec: str = FLOAT32) -> Cost:
+    return linear(rows, n_in, emb, prec=prec) \
+        + linear(rows, emb, emb, prec=prec)
 
 
-def offset_head(rows: int, mc: int) -> Cost:
+def offset_head(rows: int, mc: int, prec: str = FLOAT32) -> Cost:
     """OffsetHead on `rows` pairs of 2 mc features."""
     e = 2 * mc
-    return linear(rows, e, e // 2) + linear(rows, e // 2, e // 4) \
-        + linear(rows, e // 4, e // 8) + linear(rows, e, e // 8) \
-        + linear(rows, e // 8, 3)
+    lin = lambda n_in, n_out: linear(rows, n_in, n_out, prec=prec)
+    return lin(e, e // 2) + lin(e // 2, e // 4) + lin(e // 4, e // 8) \
+        + lin(e, e // 8) + lin(e // 8, 3)
 
 
 def kabsch_solve(k: int, batch: int = 1) -> Cost:
@@ -381,17 +411,19 @@ def kabsch_apply(k: int) -> Cost:
 
 
 def registration_cost(d, m: int, n: int, num_pairs: int,
-                      robust: bool = False) -> Dict[str, Cost]:
+                      robust: bool = False,
+                      prec: str = FLOAT32) -> Dict[str, Cost]:
     """Decoder.registration, M against N tokens: correlate, the similarity
     head, the pairing product and its dual softmax, the offset head both
     ways on num_pairs pairs, and the solve over 2 num_pairs pairs (the
     trimmed one's ops/kabsch.TRIM_SOLVES solves, or the RANSAC one's
-    RANSAC_HYPOTHESES hypotheses and its refinements)."""
+    RANSAC_HYPOTHESES hypotheses and its refinements). `prec`: the
+    network's products; the solve stays float32."""
     mc = int(d.model_channel)
-    out = correlate(d, 1, m, n)
-    out["similarity_head"] = head_mlp(m + n, mc, mc)
-    out["pairing"] = matmul(m, mc, n) + softmax(m, n) * 2
-    out["offset_head"] = offset_head(num_pairs, mc) * 2
+    out = correlate(d, 1, m, n, prec)
+    out["similarity_head"] = head_mlp(m + n, mc, mc, prec)
+    out["pairing"] = matmul(m, mc, n, prec=prec) + softmax(m, n) * 2
+    out["offset_head"] = offset_head(num_pairs, mc, prec) * 2
     k = 2 * num_pairs
     if robust:
         n_hyp = kabsch.RANSAC_HYPOTHESES
@@ -432,51 +464,73 @@ def _tokens(e) -> int:
     return int(e.npoint[len(e.npoint) - 1 - int(e.upsample_layers)])
 
 
-def extract_cost(args, n: int, counts: ScanCounts, pre) -> Dict[str, Cost]:
+def product_precision(policy: str, encoder_bf16: bool = False) -> str:
+    """The `prec` of the network's products under the matmul `policy`;
+    with encoder_bf16 (the encoder's products under tpu.encoder_bf16,
+    whose operands are bfloat16 already) BF16_ACT whatever the policy."""
+    if policy not in precision.POLICIES:
+        raise ValueError(f"matmul policy {policy!r}: use one of "
+                         f"{precision.POLICIES}")
+    if encoder_bf16:
+        return BF16_ACT
+    return RULE if policy == precision.BF16 else FLOAT32
+
+
+def _encoder_precision(args, policy: str) -> str:
+    return product_precision(policy, bool(
+        (args.get("tpu") or {}).get("encoder_bf16", False)))
+
+
+def extract_cost(args, n: int, counts: ScanCounts, pre,
+                 policy: str = precision.UNCHANGED) -> Dict[str, Cost]:
     """InferenceEngine._extract_impl on len(counts.valid) scans of n
     points: the preprocess sweep (with `pre`, the engine's
     PreprocessConfig), FPS, the SA and level-graph kNN, the FP 3-NN and
     the encoder's dense layers (at the bfloat16 rate under
-    tpu.encoder_bf16)."""
+    tpu.encoder_bf16, or under the engine's matmul `policy` "bfloat16")."""
     e = args.encoder
     b = len(counts.valid)
-    bf16 = bool((args.get("tpu") or {}).get("encoder_bf16", False))
     out = {"preprocess_sweep": preprocess_sweep(
         pre, n, counts.crop_valid, counts.in_radius)}
     out.update(encoder_neighbours(e, n, counts.valid,
                                   sweep_grouping=pre.sweep_k > 0))
-    out["encoder_dense"] = total(encoder_dense(e, b, n, bf16))
+    out["encoder_dense"] = total(encoder_dense(
+        e, b, n, _encoder_precision(args, policy)))
     return out
 
 
 def register_cost(args, m: int, n_pad: int, dst_valid: int,
-                  num_pairs: int) -> Dict[str, Cost]:
+                  num_pairs: int,
+                  policy: str = precision.UNCHANGED) -> Dict[str, Cost]:
     """InferenceEngine._register_info: registration of m against the
     encoder's tokens (both the engine's buckets) on num_pairs pairs, and
     the information matrix over scans of n_pad points at
-    tpu.infomat_stride."""
+    tpu.infomat_stride (float32 whatever the `policy`)."""
     tpu = args.get("tpu") or {}
     reg = registration_cost(args.decoder, m, _tokens(args.encoder),
                             num_pairs,
-                            robust=bool(tpu.get("robust_register", False)))
+                            robust=bool(tpu.get("robust_register", False)),
+                            prec=product_precision(policy))
     return {"registration": total(reg),
             "info_matrix": info_matrix_cost(
                 n_pad, int(tpu.get("infomat_stride", 1)), dst_valid)}
 
 
 def odometry_cost(args, n: int, counts: ScanCounts, cand_tokens: int,
-                  num_pairs: int, pre) -> Dict[str, Cost]:
+                  num_pairs: int, pre,
+                  policy: str = precision.UNCHANGED) -> Dict[str, Cost]:
     """InferenceEngine._odometry_impl: extract one scan, then register the
     candidate (cand_tokens, its bucket) against it on num_pairs pairs with
     the information matrix over the new scan's filtered points."""
-    out = extract_cost(args, n, counts, pre)
+    out = extract_cost(args, n, counts, pre, policy)
     out.update(register_cost(args, cand_tokens, n, counts.valid[0],
-                             num_pairs))
+                             num_pairs, policy))
     return out
 
 
 def train_step_cost(args, b: int, s: int, n: int, valid_points,
-                    max_pairs: int) -> Dict[str, Cost]:
+                    max_pairs: int,
+                    policy: str = precision.UNCHANGED) -> Dict[str, Cost]:
     """One stage-1 step (parallel/train_step.registration_metrics and the
     backward): b groups of s frames of n points (`valid_points`, one entry
     a frame) through the encoder, both maps of s * tokens token slots
@@ -484,22 +538,26 @@ def train_step_cost(args, b: int, s: int, n: int, valid_points,
     counts twice the forward of everything that takes a gradient (the
     dense layers, the attention, the loss's products), whether or not
     tpu.remat recomputes the encoder; FPS and kNN take none and count
-    once, as do the metric's products."""
+    once, as do the metric's products. Under the `policy` "bfloat16" the
+    network's and the loss's products, forward and backward, are at the
+    bfloat16 rate."""
     e, d = args.encoder, args.decoder
-    bf16 = bool((args.get("tpu") or {}).get("encoder_bf16", False))
+    prec = product_precision(policy)
     c, mc = int(d.in_channel), int(d.model_channel)
     tokens = s * _tokens(e)
     out = encoder_neighbours(e, n, valid_points)
-    out["encoder_dense"] = total(encoder_dense(e, b * s, n, bf16)) * 3
-    dec = total(correlate(d, b, tokens, tokens))
-    dec = dec + head_mlp(2 * b * tokens, c, c) \
-        + head_mlp(2 * b * tokens, mc, mc) + offset_head(b * max_pairs, mc) * 2
+    out["encoder_dense"] = total(encoder_dense(
+        e, b * s, n, _encoder_precision(args, policy))) * 3
+    dec = total(correlate(d, b, tokens, tokens, prec))
+    dec = dec + head_mlp(2 * b * tokens, c, c, prec) \
+        + head_mlp(2 * b * tokens, mc, mc, prec) \
+        + offset_head(b * max_pairs, mc, prec) * 2
     loss = Cost()
     for width in (mc, mc, c, c):
-        loss = loss + matmul(tokens, width, tokens, b) \
+        loss = loss + matmul(tokens, width, tokens, b, prec) \
             + softmax(b * tokens, tokens)
     out["decoder_dense"] = dec * 3
-    out["loss"] = loss * 3 + matmul(tokens, mc, tokens, b) * 2
+    out["loss"] = loss * 3 + matmul(tokens, mc, tokens, b, prec) * 2
     return out
 
 

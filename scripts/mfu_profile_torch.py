@@ -18,7 +18,10 @@ encoder, InferenceEngine._extract_impl), fused odometry (extract +
 registration + information matrix, _odometry_impl), register 256v256 with
 the information matrix (_register_info), and with --train_step one
 stage-1 step of pipeline/full_size's trainer at S = 2 frames a group
-(the JAX row's S).
+(the JAX row's S). Every program runs under the config's `tpu.bf16` rule
+for its device (utils/precision.py: "bfloat16" on a card under the
+shipped configs, the network's products at the bfloat16 rate), which
+each row names; chip_smoke.py's `mfu` phase adds the float32 rows.
 
 --model full (default): DeepPointMap-B at configs/infer/sample.yaml's full
 width (16384-point pad) with artifacts/full_size_occ_v2, on the first two
@@ -118,15 +121,15 @@ def print_table(rows, out=sys.stdout) -> None:
     fmt = lambda x, spec: "-" if x is None else format(x, spec)
     print(f"{'program':40s} {'ms':>8s} {'GFLOP':>8s} {'GB':>7s} "
           f"{'unfusedGB':>9s} {'TF/s':>7s} {'mfu':>8s} {'hbm':>8s} "
-          f"{'roof':>8s} by", file=out)
+          f"{'roof':>8s} by / policy", file=out)
     for r in rows:
         print(f"{r['program']:40s} {fmt(r['ms'], '8.3f')} "
               f"{r['gflops']:8.3f} {r['gbytes']:7.4f} "
               f"{r['unfused_gbytes']:9.4f} "
               f"{fmt(r['achieved_tflops'], '7.3f')} {fmt(r['mfu'], '8.5f')} "
               f"{fmt(r['hbm_share'], '8.5f')} "
-              f"{fmt(r['roofline_share'], '8.5f')} {r['bound_by'] or '-'}",
-              file=out)
+              f"{fmt(r['roofline_share'], '8.5f')} {r['bound_by'] or '-'} "
+              f"{r['matmul_policy']}", file=out)
 
 
 def main(argv=None) -> list:
@@ -152,6 +155,7 @@ def main(argv=None) -> list:
         kernels.strict_matmuls()
         print(f"card: {card}", file=sys.stderr)
     args, engine, pts, valid = build_engine(cli.model, cli.device)
+    print(f"matmul policy: {engine.matmul_policy}", file=sys.stderr)
     programs = mfu.engine_programs(engine, pts, valid)
     with torch.inference_mode():
         rows = mfu.measure(programs, cli.trials, cli.device, peaks, card)

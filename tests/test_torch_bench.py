@@ -45,9 +45,12 @@ def mt(prepared, work):
         return bt.throughput("cpu", work, frames=2, trials=2)
 
 
-def _last_line(capsys) -> dict:
+def _last_line(capsys, policy="unchanged") -> dict:
+    """The JSON line, after the one line that names the matmul policy (the
+    tpu.bf16 rule's: float32 on the CPU), which a run without a device
+    (`policy` None) does not print."""
     out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1, out
+    assert out[:-1] == ([f"matmul_policy: {policy}"] if policy else []), out
     return json.loads(out[-1])
 
 
@@ -148,7 +151,7 @@ def test_cuda_asked_for_without_it(work, monkeypatch, capsys):
     ran = []
     monkeypatch.setattr(bt, "scale", lambda *a: ran.append(a) or {})
     assert bt.main(["--blocks", "scale", "--out", work]) == 1
-    line = _last_line(capsys)
+    line = _last_line(capsys, policy=None)
     assert line["error"].startswith("device: RuntimeError")
     assert "CUDA is not available" in line["error"] and ran == []
 

@@ -51,9 +51,10 @@ def test_modules_found():
                  "pipeline.train_utils", "pipeline.trainer",
                  "pipeline.train", "native", "parallel.sharded_extract",
                  "pipeline.full_size", "pipeline.demo", "pipeline.evaluate",
-                 "pipeline.scale", "utils.roofline", "pipeline.mfu"):
+                 "pipeline.scale", "utils.roofline", "pipeline.mfu",
+                 "utils.precision"):
         assert f"deeppointmap_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 56
+    assert len(MODULES) >= 57
 
 
 def test_importing_every_module_loads_no_jax():

@@ -176,7 +176,7 @@ def test_encoder_bf16_moves_the_products_to_the_bf16_rate():
     and the product count does not change."""
     e = config_from_dict(SMALL).encoder
     f32 = roofline.total(roofline.encoder_dense(e, 1, 2048))
-    bf = roofline.total(roofline.encoder_dense(e, 1, 2048, bf16=True))
+    bf = roofline.total(roofline.encoder_dense(e, 1, 2048, roofline.BF16_ACT))
     assert bf.matmul_flops == bf.bf16_flops == f32.matmul_flops > 0
     assert bf.total_flops == f32.total_flops
     assert bf.flops == f32.flops - f32.matmul_flops
@@ -308,6 +308,58 @@ def test_program_counts_add_up():
         assert train[key] == once[key]
     assert train["encoder_dense"] == roofline.total(
         roofline.encoder_dense(args.encoder, 2, 2048)) * 3
+
+
+@pytest.mark.parametrize("encoder_bf16", [False, True])
+def test_tpu_bf16_moves_the_network_products_only(encoder_bf16):
+    """tpu.bf16 true (the "bfloat16" policy) and false count the same
+    FLOPs in every program, split differently: the network's products
+    (encoder and decoder layers, attention, pairing, the loss) move to the
+    bfloat16 rate, and the products over x, y, z (the solve, the
+    information matrix) and the kernels stay at the float32 rate; the
+    rule's linear layers read and write float32 activations, so the
+    bytes do not move either (tpu.encoder_bf16's do)."""
+    tree = copy.deepcopy(SMALL)
+    tree["tpu"] = dict(tree["tpu"], encoder_bf16=encoder_bf16)
+    args = config_from_dict(tree)
+    pre = PreprocessConfig.from_transforms(SMALL["transforms"])
+    counts = roofline.ScanCounts(crop_valid=(1800,), in_radius=40000,
+                                 valid=(1700,))
+    progs = {
+        "odometry": lambda policy: roofline.odometry_cost(
+            args, 2048, counts, 256, 128, pre, policy),
+        "train": lambda policy: roofline.train_step_cost(
+            args, 1, 2, 2048, [1700, 1600], 1024, policy)}
+    for name, cost in progs.items():
+        on, off = cost("bfloat16"), cost("highest")
+        assert off == cost("unchanged")
+        assert set(on) == set(off)
+        t_on, t_off = roofline.total(on), roofline.total(off)
+        assert t_on.total_flops == pytest.approx(t_off.total_flops,
+                                                 rel=1e-12)
+        assert t_on.matmul_flops == t_off.matmul_flops
+        assert t_on.bf16_flops > t_off.bf16_flops
+        assert t_on.bytes == t_off.bytes
+        for key in set(on) - {"encoder_dense", "decoder_dense", "loss",
+                              "registration"}:
+            assert on[key] == off[key], (name, key)
+    reg_on = roofline.registration_cost(args.decoder, 256, 256, 128,
+                                        prec=roofline.RULE)
+    reg_off = roofline.registration_cost(args.decoder, 256, 256, 128)
+    assert reg_on["solve"] == reg_off["solve"]
+    assert reg_on["pairing"].bf16_flops == reg_off["pairing"].matmul_flops
+    # the rule's linear layer reads float32 activations rounded on the
+    # fly: bytes of the float32 layer, operations at the bfloat16 rate
+    rule, f32 = roofline.linear(100, 64, 32, prec=roofline.RULE), \
+        roofline.linear(100, 64, 32)
+    assert rule.bytes == f32.bytes and rule.bf16_flops == f32.flops
+    # tpu.encoder_bf16's products are bfloat16 whatever the policy
+    for policy in ("bfloat16", "highest", "unchanged"):
+        assert roofline.product_precision(policy, True) == roofline.BF16_ACT
+    with pytest.raises(ValueError):
+        roofline.extract_cost(args, 2048, counts, pre, "medium")
+    with pytest.raises(ValueError):
+        roofline.linear(100, 64, 32, prec="medium")
 
 
 # ------------------------------------------------------------------ (c)

@@ -65,6 +65,20 @@ def test_sharded_matches_engine(setup, n_dev):
     np.testing.assert_array_equal(pv, pv_ref)
 
 
+def test_replicas_take_the_rule_for_their_device(setup):
+    """Each replica's matmul policy is the tpu.bf16 rule's for its own
+    device, whatever the encoder handed in holds: float32 "unchanged" on
+    the CPU with the defaults (bf16 on), "highest" with tpu.bf16 false."""
+    _, _, args, enc_sd, _ = setup
+    enc = Encoder.from_config(args, "bfloat16")
+    policies = lambda ex: {m.matmul_policy for r in ex.replicas
+                           for m in r.modules() if hasattr(m, "matmul_policy")}
+    assert policies(make_sharded_extract(enc, enc_sd, [CPU] * 2, 60.0)) \
+        == {"unchanged"}
+    assert policies(make_sharded_extract(
+        enc, enc_sd, [CPU], 60.0, tpu_cfg={"bf16": False})) == {"highest"}
+
+
 def test_sharded_matches_jax_on_the_8_device_mesh(setup):
     enc, enc_p, args, enc_sd, engine = setup
     if len(jax.devices()) < 8:
