@@ -28,8 +28,13 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from deeppointmap_tpu_torch.data.readers import get_reader, read_auto
+from deeppointmap_tpu_torch.utils import timer
 
 logger = logging.getLogger(__name__)
+
+#: a training item's scan reads and host transforms (utils/timer.py)
+_READ = timer.span("train.read")
+_TRANSFORM = timer.span("train.transform")
 
 
 def _length_range(items) -> np.ndarray:
@@ -265,12 +270,19 @@ class SlamDatasets:
         info["refined_SE3_file"].append(
             "" if "carla" in ds.name else
             os.path.join(scene_root, "refined_SE3.pkl"))
-        return [self.data_transforms(ds[offset + o]) for o in map_offsets]
+        frames = []
+        for o in map_offsets:
+            with _READ:
+                frame = ds[offset + o]
+            with _TRANSFORM:
+                frames.append(self.data_transforms(frame))
+        return frames
 
     def _getitem_loop_detection(self, index: int):
         """A pair stratified <d / d-2d / >2d (reference: body.py:62-95)."""
         did, offset, ds, sid, foff = self._locate(index)
-        frame1 = ds[offset]
+        with _READ:
+            frame1 = ds[offset]
         frame_dis = self.frame_distance[did][sid][foff].astype(np.float32)
         s = self.rng.random()
         d = self.loop_detection_cfg.distance
@@ -282,5 +294,8 @@ class SlamDatasets:
             mask = frame_dis > 2 * d
         cand = np.nonzero(mask)[0] - foff
         pair = int(self.rng.choice(cand)) if cand.size else 0
-        frame2 = ds[offset + pair]
-        return (self.data_transforms(frame1), self.data_transforms(frame2))
+        with _READ:
+            frame2 = ds[offset + pair]
+        with _TRANSFORM:
+            return (self.data_transforms(frame1),
+                    self.data_transforms(frame2))

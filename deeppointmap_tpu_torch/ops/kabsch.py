@@ -22,6 +22,8 @@ import threading
 
 import torch
 
+from deeppointmap_tpu_torch.utils import timer
+
 _MIN_INLIERS = 30
 _TOPK_SEED = 64
 #: the trimmed solve's solves (the reference's fixed 3)
@@ -29,6 +31,8 @@ TRIM_SOLVES = 3
 #: the RANSAC solve's 3-point hypotheses and its refinement radii (m)
 RANSAC_HYPOTHESES = 1024
 RANSAC_REFINE_TAUS = (0.75, 0.5, 0.4)
+#: the solves, host syncs included (utils/timer.py)
+_SOLVE = timer.span("kabsch.solve")
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -44,18 +48,21 @@ def _apply_rt(pts, R, t):
 
 def _solve_rt(src, dst, w):
     """Weighted Kabsch solves, one per leading index: src/dst (..., K, 3),
-    w (..., K) >= 0 -> R (..., 3, 3), t (..., 3)."""
-    wsum = torch.clamp(w.sum(-1), min=1e-12)[..., None]
-    cs = (src * w[..., None]).sum(-2) / wsum
-    cd = (dst * w[..., None]).sum(-2) / wsum
-    S = ((src - cs[..., None, :]) * w[..., None]).transpose(-1, -2) \
-        @ (dst - cd[..., None, :])
-    u, _, vt = torch.linalg.svd(S)
-    v = vt.transpose(-1, -2)
-    det = torch.linalg.det(v @ u.transpose(-1, -2))
-    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
-    R = (v * d[..., None, :]) @ u.transpose(-1, -2)
-    t = cd - (R @ cs[..., None])[..., 0]
+    w (..., K) >= 0 -> R (..., 3, 3), t (..., 3). The `kabsch.solve` span,
+    with the host syncs the SVD and the determinant make on a card."""
+    with _SOLVE:
+        wsum = torch.clamp(w.sum(-1), min=1e-12)[..., None]
+        cs = (src * w[..., None]).sum(-2) / wsum
+        cd = (dst * w[..., None]).sum(-2) / wsum
+        S = ((src - cs[..., None, :]) * w[..., None]).transpose(-1, -2) \
+            @ (dst - cd[..., None, :])
+        u, _, vt = torch.linalg.svd(S)
+        v = vt.transpose(-1, -2)
+        det = torch.linalg.det(v @ u.transpose(-1, -2))
+        d = torch.stack([torch.ones_like(det), torch.ones_like(det), det],
+                        -1)
+        R = (v * d[..., None, :]) @ u.transpose(-1, -2)
+        t = cd - (R @ cs[..., None])[..., 0]
     return R, t
 
 

@@ -31,6 +31,10 @@ from torch.utils.checkpoint import checkpoint
 
 from deeppointmap_tpu_torch.models.loss import LossConfig, registration_loss
 from deeppointmap_tpu_torch.parallel.ddp import DataParallel
+from deeppointmap_tpu_torch.utils import timer
+
+#: the step's one host sync, the metrics' fetch (utils/timer.py)
+_SYNC = timer.span("train.sync")
 
 
 class RegistrationBatch(NamedTuple):
@@ -187,8 +191,9 @@ class TrainStep:
         if self.scheduler is not None:
             self.scheduler.step()
         names = list(metrics)
-        values = self.ddp.reduce_sum(torch.stack(
-            [metrics[k].detach().float() for k in names])).tolist()
+        with _SYNC:
+            values = self.ddp.reduce_sum(torch.stack(
+                [metrics[k].detach().float() for k in names])).tolist()
         out = dict(zip(names, values))
         return self.summary(out) if self.summary else out
 

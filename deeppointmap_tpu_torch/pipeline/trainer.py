@@ -29,8 +29,12 @@ optimizer's state and the loss's reductions stay float32);
 Besides metrics.jsonl (running means every `log_cycle` steps) every step
 appends one line to steps.jsonl: the step's metrics, the host seconds
 spent building the batch, the seconds of the step (ending in the metrics'
-one host sync), the device's peak allocated bytes and the kernel launches
-by shape.
+one host sync), the device's peak allocated bytes, the kernel launches
+by shape, and `spans`: the host seconds of the step's spans
+(utils/timer.py; a `train.step` scope around the batch and its step):
+`train.read` (scan reads), `train.transform` (the host transforms),
+`train.assemble` (the batch's assembly) and `train.sync` (the metrics'
+host sync), inclusive.
 """
 
 from __future__ import annotations
@@ -60,11 +64,13 @@ from deeppointmap_tpu_torch.pipeline.common import load_weights, save_weights
 from deeppointmap_tpu_torch.pipeline.train_utils import (Recorder,
                                                          build_optimizer,
                                                          build_schedule)
-from deeppointmap_tpu_torch.utils import precision
+from deeppointmap_tpu_torch.utils import precision, timer
 
 logger = logging.getLogger(__name__)
 
 _CKPT = re.compile(r"checkpoint_ep(\d+)\.pt$")
+#: the batch's assembly from its items (utils/timer.py)
+_ASSEMBLE = timer.span("train.assemble")
 
 
 def registration_param_mask(part: str, name: str) -> bool:
@@ -260,24 +266,29 @@ class Trainer:
             self.dataset.registration_cfg.K = self._curriculum_K()
             for idxs in self._epoch_indices(n, bs):
                 self.dataset.forced_S = self.dataset.sample_S()
+                parts = []
                 try:
-                    parts = [build_registration_batch(
-                        *self.dataset[int(i)], self.cfg.registration,
-                        self.pad_to, self.rng) for i in idxs]
+                    for i in idxs:
+                        item = self.dataset[int(i)]
+                        with _ASSEMBLE:
+                            parts.append(build_registration_batch(
+                                *item, self.cfg.registration, self.pad_to,
+                                self.rng))
                 finally:
                     self.dataset.forced_S = None
-                if len(parts) == 1:
-                    yield parts[0]
-                else:
-                    yield RegistrationBatch(*(np.concatenate(
-                        [getattr(p, f) for p in parts], axis=0)
-                        for f in RegistrationBatch._fields))
+                with _ASSEMBLE:
+                    batch = parts[0] if len(parts) == 1 else \
+                        RegistrationBatch(*(np.concatenate(
+                            [getattr(p, f) for p in parts], axis=0)
+                            for f in RegistrationBatch._fields))
+                yield batch
         else:
             for idxs in self._epoch_indices(n, bs):
                 pairs = [self.dataset[int(i)] for i in idxs]
-                yield build_loop_batch(pairs,
-                                       self.cfg.loop_detection.distance,
-                                       self.pad_to)
+                with _ASSEMBLE:
+                    batch = build_loop_batch(
+                        pairs, self.cfg.loop_detection.distance, self.pad_to)
+                yield batch
 
     def _launch_counts(self) -> Counter:
         return Counter({(k.name, sh): c for k in kernels.ALL
@@ -291,14 +302,15 @@ class Trainer:
         batches = self._iter_batches()
         i = 0
         while True:
-            t_batch = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            t_step = time.perf_counter()
-            before = self._launch_counts()
-            metrics = self.train_step(batch)
-            t_end = time.perf_counter()
+            with timer.scope("train.step", self.step + 1) as spans:
+                t_batch = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                t_step = time.perf_counter()
+                before = self._launch_counts()
+                metrics = self.train_step(batch)
+                t_end = time.perf_counter()
             self.step += 1
             rec.add_dict(metrics)
             if self._steps_file is not None:
@@ -310,7 +322,8 @@ class Trainer:
                     peak_bytes=(torch.cuda.max_memory_allocated(self.device)
                                 if cuda else None),
                     launches=[[k, list(sh), c] for (k, sh), c in
-                              sorted(launched.items())])) + "\n")
+                              sorted(launched.items())],
+                    spans=spans)) + "\n")
             i += 1
             if i % log_cycle == 0 and self._metrics_file is not None:
                 summary = rec.summary()

@@ -45,7 +45,7 @@ from deeppointmap_tpu_torch.models.decoder import Decoder, num_pairs_for
 from deeppointmap_tpu_torch.models.encoder import Encoder
 from deeppointmap_tpu_torch.ops.infomat import information_matrix
 from deeppointmap_tpu_torch.ops.neighbors import f32
-from deeppointmap_tpu_torch.utils import precision
+from deeppointmap_tpu_torch.utils import precision, timer
 
 logger = logging.getLogger(__name__)
 
@@ -63,6 +63,8 @@ DEFAULT_EXTRACT_CHUNK = 4
 _QUANT_SENTINEL = -32768
 #: names under which a scan's arrays sit in the device cache
 _SCAN_KEYS = ("kp_pad", "kv_pad", "pcd", "pv")
+#: the host blocked on a device event (utils/timer.py)
+_WAIT = timer.span("engine.wait")
 
 
 def _bucket(n: int, buckets) -> int:
@@ -184,9 +186,13 @@ class InferenceEngine:
         """Enqueue copies of `tensors` into pinned host memory on the
         current stream, behind the work that makes them, and record an
         event after them. -> (a function that waits for that event and
-        returns the NumPy arrays, the event; None on the CPU)."""
+        returns the NumPy arrays, the event; None on the CPU). The wait is
+        the `engine.wait` span."""
         if self.device.type != "cuda":
-            return (lambda: tuple(t.numpy() for t in tensors)), None
+            def wait_host():
+                with _WAIT:
+                    return tuple(t.numpy() for t in tensors)
+            return wait_host, None
         hosts = []
         for t in tensors:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -196,7 +202,8 @@ class InferenceEngine:
         done.record(torch.cuda.current_stream(self.device))
 
         def wait():
-            done.synchronize()
+            with _WAIT:
+                done.synchronize()
             return tuple(h.numpy() for h in hosts)
         return wait, done
 
@@ -207,7 +214,8 @@ class InferenceEngine:
     def _fetch_later(self, t: torch.Tensor, after):
         """A thunk that copies `t` to the host when called: on the fetch
         stream behind the event `after` (recorded where `t` was made), so
-        it waits for that work only."""
+        it waits for that work only; the wait is the `engine.wait`
+        span."""
         if after is None:
             return t.numpy
         stream = self._fetch_stream
@@ -219,7 +227,8 @@ class InferenceEngine:
                 h.copy_(t, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
-            done.synchronize()
+            with _WAIT:
+                done.synchronize()
             return h.numpy()
         return thunk
 

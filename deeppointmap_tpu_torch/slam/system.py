@@ -44,8 +44,16 @@ from deeppointmap_tpu_torch.slam.pose_graph import (PoseGraph, PoseGraphEdge,
 from deeppointmap_tpu_torch.slam.recoder import ResultLogger
 from deeppointmap_tpu_torch.slam.utils import EXIT_CODE, CommModule
 from deeppointmap_tpu_torch.utils import se3 as se3m
+from deeppointmap_tpu_torch.utils import timer
 
 logger = logging.getLogger(__name__)
+
+#: the sequential frame's stages (utils/timer.py), recorded under these
+#: names: see SlamSystem.step
+_EXTRACT = timer.span("extract")
+_ODOMETRY = timer.span("slam.odometry")
+_MAPPING = timer.span("mapping")
+_LOOP_CLOSURE = timer.span("loop_closure")
 
 
 class SlamSystem:
@@ -170,7 +178,21 @@ class SlamSystem:
     # --------------------------------------------------------- sequential
     def step(self, sensor_data: Tuple) -> EXIT_CODE:
         """One frame through the full pipeline (reference: core.py:360-423).
-        sensor_data = (points (1, P, 3) normalized, R, T, valid, original)."""
+        sensor_data = (points (1, P, 3) normalized, R, T, valid, original).
+
+        The frame is a `slam.frame` scope (utils/timer.py): at its end each
+        span's total goes to the ResultLogger under the span's name --
+        `extract` (a frame without a candidate), `slam.odometry` (the fused
+        engine call from launch to resolved result, the new scan and its
+        edge, the extra candidates), `mapping`, `loop_closure`, and inside
+        them `engine.wait` and `kabsch.solve`."""
+        with timer.scope("slam.frame", self.frame_id + 1) as tally:
+            code = self._step(sensor_data)
+        for name, seconds in tally.items():
+            self.result_logger.record_perf(name, seconds)
+        return code
+
+    def _step(self, sensor_data: Tuple) -> EXIT_CODE:
         point_cloud, R, T, valid = sensor_data[:4]
         point_cloud = np.asarray(point_cloud)
         valid = np.asarray(valid)
@@ -184,53 +206,47 @@ class SlamSystem:
         candidates = self.odometry.search_candidates(
             agent_id=self.system_id)
 
-        perf_t = time.perf_counter()
         if not candidates:
-            descriptors, desc_valid, pts_valid = self.extraction.process(
-                point_cloud, valid)
-            new_scan = self._make_scan(descriptors[0], desc_valid[0],
-                                       point_cloud[0], pts_valid[0], R, T)
-            self.result_logger.record_perf("extract",
-                                           time.perf_counter() - perf_t)
+            with _EXTRACT:
+                descriptors, desc_valid, pts_valid = self.extraction.process(
+                    point_cloud, valid)
+                new_scan = self._make_scan(descriptors[0], desc_valid[0],
+                                           point_cloud[0], pts_valid[0], R, T)
             self._first_scan(new_scan)
             self._upload(new_scan, None)
             return EXIT_CODE.acpt
 
         cand = candidates[0]
-        desc, dvalid, pts_valid, SE3, conf, rmse, info = \
-            self.engine.odometry_step(
-                point_cloud, valid, cand.key_points, cand.key_valid,
-                cand.full_pcd, cand.full_valid,
-                num_sample=self.args.slam_system.registration_sample_odometer,
-                cand_token=cand.token)
-        new_scan = self._make_scan(desc[0], dvalid[0],
-                                   point_cloud[0], pts_valid[0], R, T)
-        self.result_logger.record_perf("extract", time.perf_counter() - perf_t)
+        with _ODOMETRY:
+            desc, dvalid, pts_valid, SE3, conf, rmse, info = \
+                self.engine.odometry_step(
+                    point_cloud, valid, cand.key_points, cand.key_valid,
+                    cand.full_pcd, cand.full_valid,
+                    num_sample=self.args.slam_system
+                    .registration_sample_odometer,
+                    cand_token=cand.token)
+            new_scan = self._make_scan(desc[0], dvalid[0],
+                                       point_cloud[0], pts_valid[0], R, T)
+            odom_edge = PoseGraphEdge(
+                src_scan_token=cand.token, dst_scan_token=new_scan.token,
+                SE3=se3m.inv(SE3), information_mat=info, type="odom",
+                confidence=conf, rmse=rmse)
+            # extra candidates (odometer_candidates_num > 1): one batched
+            # device call for all of them (their edges are discarded for
+            # parity with the reference, which also only uses
+            # odom_edges[0] -- core.py:214 "Assert odometry edge contains
+            # only one edge")
+            if len(candidates) > 1:
+                self.odometry.odometry(new_scan, candidates[1:])
 
-        perf_t = time.perf_counter()
-        odom_edge = PoseGraphEdge(
-            src_scan_token=cand.token, dst_scan_token=new_scan.token,
-            SE3=se3m.inv(SE3), information_mat=info, type="odom",
-            confidence=conf, rmse=rmse)
-        # extra candidates (odometer_candidates_num > 1): one batched
-        # device call for all of them (their edges are discarded for
-        # parity with the reference, which also only uses odom_edges[0]
-        # -- core.py:214 "Assert odometry edge contains only one edge")
-        if len(candidates) > 1:
-            self.odometry.odometry(new_scan, candidates[1:])
-        self.result_logger.record_perf("odometer", time.perf_counter() - perf_t)
-
-        perf_t = time.perf_counter()
-        result = self.mapping.process(new_scan, odom_edge)
-        self.result_logger.record_perf("mapping", time.perf_counter() - perf_t)
+        with _MAPPING:
+            result = self.mapping.process(new_scan, odom_edge)
         if isinstance(result, EXIT_CODE):
             return result
 
-        perf_t = time.perf_counter()
-        self.loop.process(new_scan, targets="self")
-        self.posegraph_map.last_known_anyframe = new_scan.token
-        self.result_logger.record_perf("loop_closure",
-                                       time.perf_counter() - perf_t)
+        with _LOOP_CLOSURE:
+            self.loop.process(new_scan, targets="self")
+            self.posegraph_map.last_known_anyframe = new_scan.token
 
         self._upload(new_scan, odom_edge)
         return EXIT_CODE.acpt

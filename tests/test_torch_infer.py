@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from deeppointmap_tpu_torch.pipeline import infer as tinfer
-from deeppointmap_tpu_torch.utils.timer import TRACE_FILE, Timer
+from deeppointmap_tpu_torch.utils.timer import TRACE_FILE
 from tests.test_torch_slam import slam_config, write_sequence
 
 yaml = pytest.importorskip("yaml")
@@ -96,23 +96,18 @@ def test_parallel_engines_count(tmp_path, monkeypatch):
 
 def test_profile_writes_a_trace(tmp_path):
     """`--profile` writes <infer_tgt>/profile/trace.json, a Chrome trace
-    with the run's operator events in it."""
+    with the run's operator events in it and the program's own ranges:
+    a `dpm.slam.frame` range a frame, and `dpm.slam.odometry` inside the
+    frame that has a candidate."""
     seq = tmp_path / "seq"
     write_sequence(str(seq), n=2)
     tinfer.main(["--yaml_file", _write_yaml(tmp_path, "out", [seq]),
                  "--device", "cpu", "--profile"])
     trace = tmp_path / "out" / "profile" / TRACE_FILE
     events = json.loads(trace.read_text())["traceEvents"]
-    assert any("aten::" in str(e.get("name", "")) for e in events)
+    names = [str(e.get("name", "")) for e in events]
+    assert any("aten::" in n for n in names)
+    assert names.count("dpm.slam.frame") == 2
+    assert names.count("dpm.slam.odometry") == 1
     assert _rows(tmp_path / "out", "Seq00").shape == (2, 12)
 
-
-def test_timer_records_sections():
-    t = Timer()
-    for _ in range(3):
-        with t.record("a"):
-            pass
-    assert len(t.times["a"]) == 3 and t.mean("a") >= 0.0
-    assert set(t.summary()) == {"a"}
-    t.reset()
-    assert t.summary() == {}
