@@ -15,7 +15,12 @@ reference: dataloader/body.py:36-397).
 
 Every random draw comes from the one np.random.Generator the caller
 passes, in the JAX package's order, so that both packages build the same
-items from the same seed. Iteration is plain Python (no DataLoader).
+items from the same seed. Iteration is plain Python (no DataLoader); the
+Trainer's batch producer (pipeline/producer.py) runs it in a process of
+its own. There, when the chain draws nothing (`transforms_draw`), its
+`loader` (an executor of loader processes) reads and transforms the
+frames: an item then holds futures of its frames, which `ready` waits
+for, and the draws stay in the serial order on the producer's thread.
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ from __future__ import annotations
 import glob as globlib
 import logging
 import os
+from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from deeppointmap_tpu_torch.data.readers import get_reader, read_auto
+from deeppointmap_tpu_torch.data.transforms import draws, unchanged
 from deeppointmap_tpu_torch.utils import timer
 
 logger = logging.getLogger(__name__)
@@ -35,6 +42,34 @@ logger = logging.getLogger(__name__)
 #: a training item's scan reads and host transforms (utils/timer.py)
 _READ = timer.span("train.read")
 _TRANSFORM = timer.span("train.transform")
+
+
+def _read_frame(reader, path: str, agent_transforms):
+    """A BasicAgent's frame: the file read, then the agent's transforms."""
+    data = reader(path)
+    if agent_transforms is not None:
+        data = agent_transforms(data)
+    return data
+
+
+def _load_frame(reader, path: str, agent_transforms, data_transforms):
+    """A loader process's task: (the frame read and transformed, the tally
+    of its spans)."""
+    with timer.scope("train.load") as tally:
+        with _READ:
+            frame = _read_frame(reader, path, agent_transforms)
+        with _TRANSFORM:
+            frame = data_transforms(frame)
+    return frame, tally
+
+
+def ready(frame):
+    """A frame of a SlamDatasets item: the scan itself, or, where a loader
+    built it, the scan waited for, its spans added to this thread's scope."""
+    if isinstance(frame, Future):
+        frame, tally = frame.result()
+        timer.add(tally)
+    return frame
 
 
 def _length_range(items) -> np.ndarray:
@@ -79,10 +114,8 @@ class BasicAgent:
         self.file_list = files
 
     def __getitem__(self, item: int):
-        data = self.reader(self.file_list[item])
-        if self.data_transforms is not None:
-            data = self.data_transforms(data)
-        return data
+        return _read_frame(self.reader, self.file_list[item],
+                           self.data_transforms)
 
     def __len__(self) -> int:
         return len(self.file_list)
@@ -109,9 +142,13 @@ class BasicScene:
                     BasicAgent(agent_root, reader, parent=self))
         self.pcd_range = _length_range(self.agent_list)
 
-    def __getitem__(self, item: int):
+    def agent_of(self, item: int) -> Tuple[BasicAgent, int]:
         aid = int(np.sum(self.pcd_range <= item) - 1)
-        return self.agent_list[aid][item - self.pcd_range[aid]]
+        return self.agent_list[aid], int(item - self.pcd_range[aid])
+
+    def __getitem__(self, item: int):
+        agent, i = self.agent_of(item)
+        return agent[i]
 
     def __len__(self) -> int:
         return int(self.pcd_range[-1])
@@ -135,9 +172,14 @@ class BasicDataset:
                                               args=args))
         self.pcd_range = _length_range(self.scene_list)
 
-    def __getitem__(self, item: int):
+    def agent_of(self, item: int) -> Tuple[BasicAgent, int]:
+        """(the agent that holds frame `item`, its index there)."""
         sid = int(np.sum(self.pcd_range <= item) - 1)
-        return self.scene_list[sid][item - self.pcd_range[sid]]
+        return self.scene_list[sid].agent_of(item - self.pcd_range[sid])
+
+    def __getitem__(self, item: int):
+        agent, i = self.agent_of(item)
+        return agent[i]
 
     def __len__(self) -> int:
         return int(self.pcd_range[-1])
@@ -189,8 +231,11 @@ class SlamDatasets:
         self.dataset_cfg = args.dataset
         self.registration_cfg = args.train.registration
         self.loop_detection_cfg = args.train.loop_detection
-        self.data_transforms = data_transforms or (lambda x: x)
+        self.data_transforms = data_transforms or unchanged
         self.rng = rng or np.random.default_rng()
+        #: an executor whose processes read and transform frames, for a
+        #: chain that draws nothing; None: inline
+        self.loader = None
 
         self.dataset_list = self._load_datasets()
         self.pcd_range = _length_range(self.dataset_list)
@@ -221,6 +266,10 @@ class SlamDatasets:
 
     def loop_detection(self) -> None:
         self._getitem_method = self._getitem_loop_detection
+
+    def transforms_draw(self) -> bool:
+        """Whether the transform chain draws from a generator."""
+        return draws(self.data_transforms)
 
     def sample_S(self) -> int:
         """Draw the map size S in [2, K], biased toward pairs
@@ -270,19 +319,29 @@ class SlamDatasets:
         info["refined_SE3_file"].append(
             "" if "carla" in ds.name else
             os.path.join(scene_root, "refined_SE3.pkl"))
-        frames = []
-        for o in map_offsets:
-            with _READ:
-                frame = ds[offset + o]
-            with _TRANSFORM:
-                frames.append(self.data_transforms(frame))
-        return frames
+        return [self._frame(did, offset + o) for o in map_offsets]
+
+    def _frame(self, did: int, index: int):
+        """Frame `index` of dataset `did`, read and transformed; with a
+        loader, a future of it (`ready`)."""
+        if self.loader is not None:
+            agent, i = self.dataset_list[did].agent_of(index)
+            return self.loader.submit(_load_frame, agent.reader,
+                                      agent.file_list[i],
+                                      agent.data_transforms,
+                                      self.data_transforms)
+        return self._load(did, index)
+
+    def _load(self, did: int, index: int):
+        with _READ:
+            frame = self.dataset_list[did][index]
+        with _TRANSFORM:
+            return self.data_transforms(frame)
 
     def _getitem_loop_detection(self, index: int):
-        """A pair stratified <d / d-2d / >2d (reference: body.py:62-95)."""
+        """A pair stratified <d / d-2d / >2d (reference: body.py:62-95);
+        the reads draw nothing, so both come after the pair's draws."""
         did, offset, ds, sid, foff = self._locate(index)
-        with _READ:
-            frame1 = ds[offset]
         frame_dis = self.frame_distance[did][sid][foff].astype(np.float32)
         s = self.rng.random()
         d = self.loop_detection_cfg.distance
@@ -294,8 +353,4 @@ class SlamDatasets:
             mask = frame_dis > 2 * d
         cand = np.nonzero(mask)[0] - foff
         pair = int(self.rng.choice(cand)) if cand.size else 0
-        with _READ:
-            frame2 = ds[offset + pair]
-        with _TRANSFORM:
-            return (self.data_transforms(frame1),
-                    self.data_transforms(frame2))
+        return self._frame(did, offset), self._frame(did, offset + pair)

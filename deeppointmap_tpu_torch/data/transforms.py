@@ -490,6 +490,34 @@ def get_transforms(args_dict: dict, rng=None, return_list: bool = False
     return out if return_list else Compose(out)
 
 
+def unchanged(scan: Scan) -> Scan:
+    """The empty chain."""
+    return scan
+
+
+def stages(chain):
+    """The stages of a chain, RandomChoice's and its options' included."""
+    if isinstance(chain, PointCloudTransforms):
+        yield from stages(chain.transforms)
+    elif isinstance(chain, (Compose, RandomChoice)):
+        if isinstance(chain, RandomChoice):
+            yield chain
+        for t in chain.transforms:
+            yield from stages(t)
+    else:
+        yield chain
+
+
+def draws(chain) -> bool:
+    """Whether calling `chain` may draw from a generator: it has a stage
+    that holds one (the `_RANDOM` transforms, RandomChoice) or a stage this
+    module does not know."""
+    known = {t for k, t in TRANSFORMS.items() if k not in _RANDOM}
+    return any(s is not unchanged and (hasattr(s, "rng")
+                                       or type(s) not in known)
+               for s in stages(chain))
+
+
 class PointCloudTransforms:
     """Train/infer pipeline wrapper (reference: transforms.py:640-661);
     infer mode also returns the original (pre-transform) scan."""

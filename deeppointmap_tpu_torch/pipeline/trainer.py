@@ -26,15 +26,25 @@ accumulation, as the JAX package's step does on the TPU (parameters, the
 optimizer's state and the loss's reductions stay float32);
 `matmul_policy` forces a policy.
 
+Batches: `pipeline/batching.BatchBuilder` builds each epoch's batches.
+With `num_workers` >= 1 a producer process (pipeline/producer.py) runs it
+ahead of the step, started with the Trainer and fed its builder at the
+first epoch (from then on it owns the generator); with 0, or none given,
+the loop builds each batch itself when it needs it. Either way the batches
+are the same, byte for byte.
+
 Besides metrics.jsonl (running means every `log_cycle` steps) every step
-appends one line to steps.jsonl: the step's metrics, the host seconds
-spent building the batch, the seconds of the step (ending in the metrics'
-one host sync), the device's peak allocated bytes, the kernel launches
-by shape, and `spans`: the host seconds of the step's spans
-(utils/timer.py; a `train.step` scope around the batch and its step):
-`train.read` (scan reads), `train.transform` (the host transforms),
-`train.assemble` (the batch's assembly) and `train.sync` (the metrics'
-host sync), inclusive.
+appends one line to steps.jsonl: the step's metrics, `batch_s` (the host
+seconds the loop waited for its batch: the whole build on the serial
+path), `batch_ready` (whether the producer had the batch ready when the
+loop asked; false on the serial path), the seconds of the step (ending in
+the metrics' one host sync), the device's peak allocated bytes, the
+kernel launches by shape, and `spans`: the host seconds of the step's
+spans (utils/timer.py; a `train.step` scope around the batch and its
+step): `train.read` (scan reads), `train.transform` (the host transforms),
+`train.assemble` (the batch's assembly), timed in the loop or by the
+producer for this batch, and `train.sync` (the metrics' host sync),
+inclusive.
 """
 
 from __future__ import annotations
@@ -56,11 +66,11 @@ from deeppointmap_tpu_torch.models.encoder import Encoder
 from deeppointmap_tpu_torch.models.loss import LossConfig
 from deeppointmap_tpu_torch.parallel.ddp import DataParallel
 from deeppointmap_tpu_torch.parallel.train_step import (
-    RegistrationBatch, loop_param_mask, make_loop_train_step,
-    make_registration_train_step, to_device)
-from deeppointmap_tpu_torch.pipeline.batching import (build_loop_batch,
-                                                      build_registration_batch)
+    loop_param_mask, make_loop_train_step, make_registration_train_step,
+    to_device)
+from deeppointmap_tpu_torch.pipeline.batching import BatchBuilder, EpochPlan
 from deeppointmap_tpu_torch.pipeline.common import load_weights, save_weights
+from deeppointmap_tpu_torch.pipeline.producer import Producer
 from deeppointmap_tpu_torch.pipeline.train_utils import (Recorder,
                                                          build_optimizer,
                                                          build_schedule)
@@ -69,8 +79,6 @@ from deeppointmap_tpu_torch.utils import precision, timer
 logger = logging.getLogger(__name__)
 
 _CKPT = re.compile(r"checkpoint_ep(\d+)\.pt$")
-#: the batch's assembly from its items (utils/timer.py)
-_ASSEMBLE = timer.span("train.assemble")
 
 
 def registration_param_mask(part: str, name: str) -> bool:
@@ -96,6 +104,11 @@ class Trainer:
                  device="cuda", matmul_policy=None):
         self.args = args
         self.cfg = args.train
+        # the producer's interpreter starts first: it imports while the
+        # models are built
+        workers = int(args.get("num_workers") or 0)
+        self._producer = Producer(workers) if workers >= 1 else None
+        self._batch_ready = False
         self.dataset = dataset
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -140,6 +153,8 @@ class Trainer:
         self._setup_stage()
 
     def close(self) -> None:
+        if self._producer is not None:
+            self._producer.close()
         for f in (self._metrics_file, self._steps_file, self._tb):
             if f is not None:
                 f.close()
@@ -244,51 +259,25 @@ class Trainer:
                 self.save()
         self.save(final=True)
 
-    def _epoch_indices(self, n_steps: int, bs: int):
-        """Anchor indices per step: a fresh permutation of the dataset each
-        epoch, topped up with random extras when the dataset is smaller
-        than the steps need (trainer.py:88-95)."""
-        perm = self.rng.permutation(len(self.dataset))
-        need = n_steps * bs
-        if need > len(perm):
-            extra = self.rng.integers(0, len(self.dataset),
-                                      size=need - len(perm))
-            perm = np.concatenate([perm, extra])
-        for i in range(n_steps):
-            yield perm[i * bs:(i + 1) * bs]
-
     def _iter_batches(self):
-        """Host batches of the current stage: one S per global batch in
-        stage 1, so that every rank's slice has the same shape."""
-        n = self._steps_per_epoch()
-        bs = self._batch_items()
-        if self.stage == 1:
-            self.dataset.registration_cfg.K = self._curriculum_K()
-            for idxs in self._epoch_indices(n, bs):
-                self.dataset.forced_S = self.dataset.sample_S()
-                parts = []
-                try:
-                    for i in idxs:
-                        item = self.dataset[int(i)]
-                        with _ASSEMBLE:
-                            parts.append(build_registration_batch(
-                                *item, self.cfg.registration, self.pad_to,
-                                self.rng))
-                finally:
-                    self.dataset.forced_S = None
-                with _ASSEMBLE:
-                    batch = parts[0] if len(parts) == 1 else \
-                        RegistrationBatch(*(np.concatenate(
-                            [getattr(p, f) for p in parts], axis=0)
-                            for f in RegistrationBatch._fields))
+        """Host batches of the current stage's epoch (BatchBuilder), built
+        here when asked for, or taken from the producer; each sets
+        `_batch_ready`, and the producer's spans for it go to the scope
+        open here (the step's)."""
+        plan = EpochPlan(self.stage, self._curriculum_K(),
+                         self._steps_per_epoch(), self._batch_items())
+        builder = BatchBuilder(self.dataset, self.rng, self.cfg, self.pad_to)
+        if self._producer is None:
+            for batch in builder.epoch(plan):
+                self._batch_ready = False
                 yield batch
-        else:
-            for idxs in self._epoch_indices(n, bs):
-                pairs = [self.dataset[int(i)] for i in idxs]
-                with _ASSEMBLE:
-                    batch = build_loop_batch(
-                        pairs, self.cfg.loop_detection.distance, self.pad_to)
-                yield batch
+            return
+        if plan.stage == 1:
+            self.dataset.registration_cfg.K = plan.K
+        for batch, spans, ready in self._producer.batches(builder, plan):
+            timer.add(spans)
+            self._batch_ready = ready
+            yield batch
 
     def _launch_counts(self) -> Counter:
         return Counter({(k.name, sh): c for k in kernels.ALL
@@ -318,7 +307,7 @@ class Trainer:
                 self._steps_file.write(json.dumps(dict(
                     stage=self.stage, epoch=self.epoch, step=self.step,
                     metrics=metrics, batch_s=t_step - t_batch,
-                    step_s=t_end - t_step,
+                    batch_ready=self._batch_ready, step_s=t_end - t_step,
                     peak_bytes=(torch.cuda.max_memory_allocated(self.device)
                                 if cuda else None),
                     launches=[[k, list(sh), c] for (k, sh), c in

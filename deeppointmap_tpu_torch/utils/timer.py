@@ -10,6 +10,9 @@ open on its thread, under its name, summed over the scope. A span on a
 thread with no scope open adds nothing, so the prefetch thread and the
 pipelined mode's stage threads accumulate nothing.
 
+`add(tally)` hands a tally made elsewhere (another thread's scope, the
+training batch producer's) to the scope open on the calling thread.
+
 Totals are inclusive: a span's seconds include those of every span opened
 inside it. A parent's self time is its total minus its children's totals
 (`slam.odometry` holds `engine.wait` and `kabsch.solve`).
@@ -133,6 +136,16 @@ class span:
         if opened and opened[-1][0] is self:
             opened.pop()[1].__exit__(exc_type, exc, tb)
         return False
+
+
+def add(tally: Dict[str, float]) -> None:
+    """Add the seconds of `tally` (spans timed on another thread or in
+    another process) to the scope open on this thread, under their names
+    (no scope: nothing)."""
+    sc = _SCOPE.get()
+    if sc is not None:
+        for name, seconds in tally.items():
+            sc.tally[name] = sc.tally.get(name, 0.0) + seconds
 
 
 @contextmanager

@@ -209,16 +209,15 @@ def test_pipelined_threads_accumulate_nothing(demo_cfg):
 
 
 # -------------------------------------------------------------- training
-def test_trainer_rows_carry_their_spans(tmp_path):
-    """Every steps.jsonl row of both stages carries `spans` with the four
-    training spans; reads, transforms and assembly lie inside the row's
-    batch_s and the sync inside its step_s."""
+def _train_rows(tmp_path, num_workers: int) -> list:
+    """steps.jsonl of both stages through the CLI on the tiny config."""
     root = str(tmp_path / "ds")
     make_synthetic_dataset(root, n_frames=8)
     out = str(tmp_path / "log")
     path = tmp_path / "train.yaml"
     path.write_text(yaml.safe_dump(tiny_cfg(root, out)))
-    ttrain.main(["--yaml_file", str(path), "--device", "cpu"])
+    ttrain.main(["--yaml_file", str(path), "--device", "cpu",
+                 "--num_workers", str(num_workers)])
     with open(os.path.join(out, "steps.jsonl")) as f:
         rows = [json.loads(x) for x in f]
     assert {r["stage"] for r in rows} == {1, 2}
@@ -226,9 +225,29 @@ def test_trainer_rows_carry_their_spans(tmp_path):
         spans = r["spans"]
         assert set(spans) >= TRAIN_SPANS, sorted(spans)
         assert all(v > 0 for v in spans.values())
+        assert spans["train.sync"] <= r["step_s"]
+    return rows
+
+
+def test_trainer_rows_carry_their_spans(tmp_path):
+    """Every steps.jsonl row of both stages carries `spans` with the four
+    training spans; on the serial path (`num_workers` 0) reads, transforms
+    and assembly lie inside the row's batch_s, and the sync inside its
+    step_s."""
+    for r in _train_rows(tmp_path, 0):
+        spans = r["spans"]
         host = spans["train.read"] + spans["train.transform"] \
             + spans["train.assemble"]
-        assert host <= r["batch_s"] and spans["train.sync"] <= r["step_s"]
+        assert host <= r["batch_s"] and r["batch_ready"] is False
+
+
+def test_trainer_rows_carry_producer_spans(tmp_path):
+    """With a batch producer (the CLI's default `num_workers`) every row
+    still carries the four spans, the host ones timed in the producer for
+    that batch, and says whether its batch was waiting."""
+    rows = _train_rows(tmp_path, 4)
+    assert all(isinstance(r["batch_ready"], bool) for r in rows)
+    assert any(r["batch_ready"] for r in rows)
 
 
 # --------------------------------------------------- the benchmark readers

@@ -279,3 +279,132 @@ def test_train_yamls_load(root, tmp_path, monkeypatch):
     assert t.encoder.act_dtype == "bfloat16"
     assert seen == {("bfloat16", "cpu")}
     assert os.path.exists(os.path.join(t.log_dir, "weights_final.msgpack"))
+
+
+def _bare_trainer(cfg: dict, seed: int = 0) -> Trainer:
+    """port_trainer with the port's own initial weights (the batch tests
+    never step)."""
+    from deeppointmap_tpu_torch.models.decoder import Decoder
+    from deeppointmap_tpu_torch.models.encoder import Encoder
+
+    args = config_from_dict(copy.deepcopy(cfg))
+    rng = np.random.default_rng(seed)
+    ds = SlamDatasets(args, data_transforms=training_transforms(args, rng),
+                      rng=rng)
+    return Trainer(args, ds, Encoder.from_config(args).state_dict(),
+                   Decoder.from_config(args).state_dict(), rng=rng,
+                   device="cpu")
+
+
+def _recording(t: Trainer, raise_at=None):
+    """Replace `t.train_step` by one that keeps each batch handed to it
+    and, at call `raise_at`, raises out of the epoch."""
+    seen = []
+
+    def step(batch):
+        seen.append(batch)
+        if raise_at is not None and len(seen) == raise_at:
+            raise KeyboardInterrupt
+        return {"loss": 0.0}
+
+    t.train_step = step
+    return seen
+
+
+def _assert_same_batches(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert type(a) is type(b)
+        for f in b._fields:
+            x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+            assert x.dtype == y.dtype and x.shape == y.shape, f
+            assert x.tobytes() == y.tobytes(), f
+
+
+def _producer_cfg(root, out, chain):
+    cfg = tiny_cfg(root, out)
+    cfg["train"]["registration"].update(num_epochs=2, batch_size=2,
+                                        mult_epoch=1, K_0=2, K_max=4)
+    cfg["tpu"]["data_parallel"] = 1
+    if chain == "random_rt":
+        cfg["transforms"] = {"RandomRT": {"r_std": 0.5, "t_std": 1.0},
+                             **cfg["transforms"]}
+    return cfg
+
+
+@pytest.mark.parametrize("chain", ["plain", "random_rt"])
+@pytest.mark.parametrize("num_workers", [1, 2])
+def test_producer_batches_match_serial(root, tmp_path, monkeypatch,
+                                       num_workers, chain):
+    """With `num_workers` the batches handed to train_step come from the
+    producer process and equal, field by field and byte for byte, the
+    serial path's from the same seed: two stage-1 epochs with the
+    curriculum raising K, then a stage-2 epoch; with a chain that draws
+    (RandomRT: the frames load serially in the producer) and one that
+    does not (in two loader processes when there are two). Every step's
+    row says whether its batch was waiting and carries the producer's
+    spans."""
+    from deeppointmap_tpu_torch.pipeline import producer
+
+    monkeypatch.setattr(producer, "WAIT_S", 30.0)
+    serial = _bare_trainer(_producer_cfg(root, str(tmp_path / "s"), chain))
+    cfg = _producer_cfg(root, str(tmp_path / "p"), chain)
+    cfg["num_workers"] = num_workers
+    made = _bare_trainer(cfg)
+    assert serial._producer is None and made._producer is not None
+    want, got = _recording(serial), _recording(made)
+    try:
+        for epoch, stage in ((0, 1), (1, 1), (2, 2)):
+            for t in (serial, made):
+                t.epoch, t.stage = epoch, stage
+                if stage == 2:
+                    t._setup_stage()
+                t.train_one_epoch()
+        _assert_same_batches(got, want)
+        assert len({b[0].shape[:2] for b in got}) >= 3
+        assert made._producer.cuda_initialized is False
+    finally:
+        made.close()
+        serial.close()
+    with open(tmp_path / "p" / "steps.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == len(got)
+    assert all(isinstance(r["batch_ready"], bool) for r in rows)
+    for r in rows:
+        assert {"train.read", "train.transform",
+                "train.assemble"} <= set(r["spans"])
+    with open(tmp_path / "s" / "steps.jsonl") as f:
+        assert not any(json.loads(line)["batch_ready"] for line in f)
+
+
+def test_producer_epoch_left_early_and_close(root, tmp_path, monkeypatch):
+    """An exception out of train_step after 2 steps leaves the producer
+    with batches built ahead; the next epoch gets a fresh plan and exactly
+    the serial path's batches, never one of the abandoned epoch's. close()
+    stops the producer (a bounded wait), which never initialised CUDA."""
+    from deeppointmap_tpu_torch.pipeline import producer
+
+    monkeypatch.setattr(producer, "WAIT_S", 30.0)
+    serial = _bare_trainer(_producer_cfg(root, str(tmp_path / "s"), "plain"))
+    cfg = _producer_cfg(root, str(tmp_path / "p"), "plain")
+    cfg["num_workers"] = 2
+    made = _bare_trainer(cfg)
+    runs = {}
+    try:
+        for name, t in (("serial", serial), ("made", made)):
+            first = _recording(t, raise_at=3)
+            with pytest.raises(KeyboardInterrupt):
+                t.train_one_epoch()
+            assert len(first) == 3 < t._steps_per_epoch()
+            rest = _recording(t)
+            t.train_one_epoch()
+            t.epoch = 1
+            t.train_one_epoch()
+            runs[name] = first + rest
+        _assert_same_batches(runs["made"], runs["serial"])
+        proc = made._producer
+        assert proc.cuda_initialized is False and proc._proc.poll() is None
+    finally:
+        made.close()
+        serial.close()
+    assert proc._proc.wait(timeout=15) is not None
