@@ -358,6 +358,10 @@ REPLACES = {"fps": "deeppointmap_tpu/ops/pallas_fps.py:111",
             "moments": "deeppointmap_tpu/ops/pallas_moments.py:94",
             "sweep": "deeppointmap_tpu/ops/pallas_sweep.py:147"}
 SOURCES = {name: f"deeppointmap_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["kabsch"] = "deeppointmap_tpu_torch/csrc/kabsch.cu"
+#: K5 against the plain solve in float64 on the same inputs (its answer
+#: is float64's, rounded to float32 once): R's entries, t in meters
+KABSCH_TOL = (2e-6, 2e-5)
 
 #: configs/infer/sample.yaml (the DeepPointMap-B model) as a dict; the
 #: `tpu:` tree is laid over TPU_DEFAULTS by config_from_dict
@@ -844,6 +848,53 @@ def check_sweep(torch, sw, points, valid, k, radius):
                 library_ms=library_ms)
 
 
+def kabsch_inputs(torch, b: int, k: int, seed: int):
+    """b sets of k pairs within ~60 m, dst a rotated, shifted, noisy src;
+    weights in (0, 1]."""
+    g = np.random.default_rng(seed)
+    src = g.normal(size=(b, k, 3)) * 20.0
+    axis = g.normal(size=(b, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    ang = g.uniform(-np.pi, np.pi, size=(b, 1, 1))
+    K = np.cross(axis[:, :, None], np.eye(3)[None], axis=1)
+    R = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * (K @ K)
+    dst = np.einsum("bij,bkj->bki", R, src) + g.normal(size=(b, 1, 3)) * 5 \
+        + g.normal(size=(b, k, 3)) * 0.05
+    w = g.uniform(0.05, 1.0, size=(b, k))
+    return [torch.from_numpy(x.astype(np.float32)).cuda()
+            for x in (src, dst, w)]
+
+
+def check_kabsch(torch, kabsch, b: int, k: int, seed: int = 0) -> dict:
+    """One K5 shape (b solves of k pairs) against the plain solve in
+    float64 (KABSCH_TOL); timed beside the plain solve in float32 and its
+    torch.linalg.svd + det alone (`library_ms`). Returns its entry."""
+    src, dst, w = kabsch_inputs(torch, b, k, seed)
+    R, t = kabsch.solve_rt_cuda(src, dst, w)
+    R64, t64 = kabsch._solve_rt_plain(src.double(), dst.double(), w.double())
+    err_R = float((R.double() - R64).abs().max())
+    err_t = float((t.double() - t64).abs().max())
+    if k >= 3 and (err_R > KABSCH_TOL[0] or err_t > KABSCH_TOL[1]):
+        raise AssertionError(f"K5 differs from its plain version at b={b} "
+                             f"k={k}: R {err_R}, t {err_t}")
+    ms, host = timed(torch, lambda: kabsch.solve_rt_cuda(src, dst, w), 20)
+    plain_ms = timed_ms(torch, lambda: kabsch._solve_rt_plain(src, dst, w),
+                        5)
+    S = torch.randn(b, 3, 3, device=src.device)
+
+    def library():
+        u, _, vt = torch.linalg.svd(S)
+        return torch.linalg.det(vt.transpose(-1, -2) @ u.transpose(-1, -2))
+
+    library_ms = timed_ms(torch, library, 5)
+    bound_ms, by = bound(roofline.kabsch_solve(k, b))
+    return dict(name="kabsch", shape=list(kabsch.solve_shape(b, k)),
+                route="cuda", source=SOURCES["kabsch"], replaces=None,
+                max_abs_err=max(err_R, err_t), ms=ms, host_us=host,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=library_ms)
+
+
 def sweep_recall(sw, nb, points, valid, k) -> float:
     """Share of K2's exact k nearest that K4 returns, over valid centers."""
     approx = sw.fused_sweep_cuda(points, valid, k)[0][valid].cpu().numpy()
@@ -1298,6 +1349,19 @@ def launches_of(kernels, entries, path: str, launched: dict) -> dict:
     at a shape that was not checked against its plain version, and add them
     to `launched[(kernel, shape)][path]`. -> {kernel: launches}."""
     checked = {(en["name"], tuple(en["shape"])) for en in entries}
+    # K5's shapes follow the registrations' pair counts: a new one is
+    # checked when a path first runs it, outside the path's counts
+    new = [sh for sh in kernels.KABSCH.shapes
+           if ("kabsch", sh) not in checked]
+    if new:
+        import torch
+
+        from deeppointmap_tpu_torch.ops import kabsch
+
+        with kernels.recording():
+            for sh in new:
+                entries.append(check_kabsch(torch, kabsch, *sh))
+                checked.add(("kabsch", sh))
     totals = {}
     for k in kernels.ALL:
         missing = [sh for sh in k.shapes if (k.name, sh) not in checked]
@@ -2664,6 +2728,19 @@ def main(out_dir: str = "") -> int:
     if min(recall.values()) < 0.97:
         raise AssertionError(f"K4 recall below 0.97: {recall}")
     entries += k3 + k4
+
+    # ------------------------------------------------------------------ K5
+    # the RANSAC hypotheses and the refine solves of the 4096-token tile
+    # (the paths' other pair counts are checked as they first run)
+    from deeppointmap_tpu_torch.ops import kabsch
+    k5 = [check_kabsch(torch, kabsch, kabsch.RANSAC_HYPOTHESES, 3),
+          check_kabsch(torch, kabsch, 1, 2 * decoder_mod.num_pairs_for(
+              4096, 256))]
+    emit(dict(phase="k5", card=smi, shapes=[
+        {key: en[key] for key in ("shape", "max_abs_err", "ms", "host_us",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")} for en in k5]))
+    entries += k5
 
     # -------------------------------------------------------- main path
     enc_sd, dec_sd = load_msgpack_weights(WEIGHTS)

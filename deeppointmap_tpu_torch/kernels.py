@@ -114,13 +114,19 @@ def device_guard(device):
     return torch.cuda.device(device)
 
 
+#: per thread, the launches that a CUDA graph capture holds (`recording`)
+_RECORDING = threading.local()
+
+
 class Kernel:
     """One CUDA source, its C entry point and the count of its launches.
 
-    `launches` counts the launches made through `launch`, and `shapes`
-    counts them by the shape key the op wrapper passes; nothing else
-    changes either. Both are updated under the kernel's lock, since the
-    pipelined SLAM mode launches from several threads at once."""
+    `launches` counts the launches made through `launch` that run, and
+    `shapes` counts them by the shape key the op wrapper passes; nothing
+    else changes either. Both are updated under the kernel's lock, since
+    the pipelined SLAM mode launches from several threads at once. A
+    launch into a CUDA graph capture does not run: `recording` holds it,
+    and `add_launches` counts it at each replay of the graph."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  headers: tuple = ()):
@@ -168,6 +174,10 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch "
                                f"(cudaError {err})")
+        captured = getattr(_RECORDING, "launched", None)
+        if captured is not None:
+            captured[(self, shape)] += 1
+            return
         with self._lock:
             self.launches += 1
             self.shapes[shape] += 1
@@ -187,7 +197,10 @@ MOMENTS = Kernel("moments", "moments.cu", "dpm_moments",
 SWEEP = Kernel("sweep", "sweep.cu", "dpm_sweep",
                [_P, _P, _I, _I, _I, _F, _P, _L, _P, _P, _P, _P],
                headers=("radius.cuh",))
-ALL = (FPS, KNN, MOMENTS, SWEEP)
+#: K5: batched weighted Kabsch solve (csrc/kabsch.cu).
+KABSCH = Kernel("kabsch", "kabsch.cu", "dpm_kabsch",
+                [_P, _P, _P, _I, _I, _P, _P, _P])
+ALL = (FPS, KNN, MOMENTS, SWEEP, KABSCH)
 
 
 def build_all() -> None:
@@ -197,6 +210,29 @@ def build_all() -> None:
         k.finish_build(p)
     for k in ALL:
         k.fn()
+
+
+@contextlib.contextmanager
+def recording():
+    """The kernels' launches made on this thread inside the block go to
+    the Counter it yields, {(kernel, shape): launches}, and not to the
+    kernels' counts: a CUDA graph's capture (a captured launch runs only
+    when the graph is replayed), or a warm-up or check that a path's
+    counts leave out."""
+    prev = getattr(_RECORDING, "launched", None)
+    _RECORDING.launched = launched = Counter()
+    try:
+        yield launched
+    finally:
+        _RECORDING.launched = prev
+
+
+def add_launches(launched) -> None:
+    """Count the launches of a `recording` once more (a graph replayed)."""
+    for (k, shape), n in launched.items():
+        with k._lock:
+            k.launches += n
+            k.shapes[shape] += n
 
 
 def reset_launches() -> None:

@@ -25,7 +25,7 @@ from deeppointmap_tpu_torch.models.common import (LN_EPS, Linear,
 from deeppointmap_tpu_torch.ops.kabsch import (ransac_kabsch, top_k,
                                                weighted_kabsch)
 from deeppointmap_tpu_torch.ops.neighbors import group_points
-from deeppointmap_tpu_torch.utils import precision
+from deeppointmap_tpu_torch.utils import graphs, precision
 
 _CONF_TOPK = 30  # confidence = mean of the first 30 inlier confidences
                  # (reference: system/modules/utils.py:18)
@@ -136,6 +136,8 @@ class Decoder(nn.Module):
         self.offset_head = OffsetHead(model_channel * 2)
         self.loop_head = OverlapHead(model_channel)
         precision.set_policy(self, matmul_policy)
+        #: registration's CUDA graphs (utils/graphs.py)
+        self._graphs = graphs.Graphs()
 
     @classmethod
     def from_config(cls, args,
@@ -166,7 +168,24 @@ class Decoder(nn.Module):
         (R (3, 3), t (3,), confidence, rmse, num_inliers), solving
         dst ~= R src + t. `num_pairs` is the pair count for the (bucketed)
         shapes; pairs ranked beyond `num_pairs_actual`, the count for the
-        real sizes, are masked out of the solve (decoder.py:246-247)."""
+        real sizes, are masked out of the solve (decoder.py:246-247).
+
+        `_registration_eager`, replayed from a CUDA graph on the card
+        (utils/graphs.py): one graph a shape, pair count and solver, with
+        `num_pairs_actual` a device scalar of it."""
+        def program(src, dst, sv, dv, actual):
+            return self._registration_eager(src, dst, sv, dv, num_pairs,
+                                            actual)
+        return self._graphs(
+            program, (src_desc, dst_desc, src_valid, dst_valid,
+                      num_pairs_actual),
+            ("registration", num_pairs, self.robust_register,
+             self.matmul_policy))
+
+    def _registration_eager(self, src_desc, dst_desc, src_valid, dst_valid,
+                            num_pairs: int, num_pairs_actual=None):
+        """`registration`'s program, run op by op; `num_pairs_actual` a
+        host int or a device scalar."""
         m, n = src_desc.shape[0], dst_desc.shape[0]
         src_fea, dst_fea = self.correlate(src_desc[None], dst_desc[None],
                                           src_valid[None], dst_valid[None])

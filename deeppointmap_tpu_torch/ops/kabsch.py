@@ -6,8 +6,12 @@ deeppointmap_tpu/ops/kabsch.py): the reference's trimmed solve
 The reference's dynamic while loop (network/decoder/decoder.py:227-265)
 runs a fixed 3 solves with a `stopped` flag held in a tensor, so the
 solve never waits on the host. The covariance is formed after centring
-and decomposed in float32 (`torch.linalg.svd`, batched over hypotheses in
-the RANSAC solve); a determinant correction rules out reflections.
+and decomposed; a determinant correction rules out reflections. On the
+CPU the plain version does it in the inputs' precision
+(`torch.linalg.svd`, batched over hypotheses in the RANSAC solve); a CUDA
+tensor goes to K5 (csrc/kabsch.cu), which sums and decomposes in float64
+in one launch, with no host sync, so that registration can be captured
+into a CUDA graph.
 
 The RANSAC hypotheses are drawn with the JAX package's own noise,
 `jax.random.gumbel(PRNGKey(0), (n_hyp, K))`, reproduced here without JAX:
@@ -22,6 +26,7 @@ import threading
 
 import torch
 
+from deeppointmap_tpu_torch import kernels
 from deeppointmap_tpu_torch.utils import timer
 
 _MIN_INLIERS = 30
@@ -31,7 +36,8 @@ TRIM_SOLVES = 3
 #: the RANSAC solve's 3-point hypotheses and its refinement radii (m)
 RANSAC_HYPOTHESES = 1024
 RANSAC_REFINE_TAUS = (0.75, 0.5, 0.4)
-#: the solves, host syncs included (utils/timer.py)
+#: the solves' host time (utils/timer.py): K5's launch on a card, the
+#: plain solve on the CPU; a graph's replay enters none
 _SOLVE = timer.span("kabsch.solve")
 
 
@@ -46,24 +52,74 @@ def _apply_rt(pts, R, t):
     return pts @ R.T + t[None, :]
 
 
+def _solve_rt_plain(src, dst, w):
+    """The plain version of the solves (K5's semantics): weighted
+    centroids, the centred covariance S = U diag(s) V^T,
+    R = V diag(1, 1, det(V U^T)) U^T and t = cd - R cs, in the inputs'
+    precision."""
+    wsum = torch.clamp(w.sum(-1), min=1e-12)[..., None]
+    cs = (src * w[..., None]).sum(-2) / wsum
+    cd = (dst * w[..., None]).sum(-2) / wsum
+    S = ((src - cs[..., None, :]) * w[..., None]).transpose(-1, -2) \
+        @ (dst - cd[..., None, :])
+    u, _, vt = torch.linalg.svd(S)
+    v = vt.transpose(-1, -2)
+    det = torch.linalg.det(v @ u.transpose(-1, -2))
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    R = (v * d[..., None, :]) @ u.transpose(-1, -2)
+    t = cd - (R @ cs[..., None])[..., 0]
+    return R, t
+
+
+def solve_shape(b: int, k: int) -> tuple:
+    """Key under which K5's launches are counted by shape."""
+    return b, k
+
+
+def solve_rt_cuda(src, dst, w):
+    """Launch K5 (csrc/kabsch.cu) on the current stream: src/dst
+    (..., K, 3) and w (..., K) float32 on one GPU -> R (..., 3, 3),
+    t (..., 3) float32. Allocates its outputs only, and never syncs.
+
+    Replaces no TPU kernel (the JAX package's jnp.linalg.svd stays on the
+    device under XLA; torch.linalg.svd and det sync). Bound: the bytes of
+    the long refine sets, the serial 3x3 decomposition for the RANSAC
+    hypotheses. A warp or a block takes a problem and sums in float64; one
+    thread decomposes S by one-sided Jacobi (csrc/kabsch.cu says more)."""
+    if src.dtype != torch.float32 or dst.dtype != torch.float32 \
+            or w.dtype != torch.float32:
+        raise ValueError("solve_rt_cuda takes float32 src, dst and w")
+    lead, k = src.shape[:-2], src.shape[-2]
+    if src.shape[-1] != 3 or dst.shape != src.shape \
+            or w.shape != src.shape[:-1]:
+        raise ValueError("solve_rt_cuda takes src/dst (..., K, 3) and w "
+                         "(..., K)")
+    dev = src.device
+    if dst.device != dev or w.device != dev:
+        raise ValueError("solve_rt_cuda takes tensors on one device")
+    b = 1
+    for n in lead:
+        b *= n
+    if b < 1 or k < 1:
+        raise ValueError(f"solve_rt_cuda needs a problem of a pair at least "
+                         f"(got {tuple(src.shape)})")
+    src, dst, w = (x.contiguous() for x in (src, dst, w))
+    R = torch.empty((*lead, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    kernels.KABSCH.launch(src.data_ptr(), dst.data_ptr(), w.data_ptr(), b, k,
+                          R.data_ptr(), t.data_ptr(), kernels.stream_ptr(dev),
+                          device=dev, shape=solve_shape(b, k))
+    return R, t
+
+
 def _solve_rt(src, dst, w):
     """Weighted Kabsch solves, one per leading index: src/dst (..., K, 3),
-    w (..., K) >= 0 -> R (..., 3, 3), t (..., 3). The `kabsch.solve` span,
-    with the host syncs the SVD and the determinant make on a card."""
+    w (..., K) >= 0 -> R (..., 3, 3), t (..., 3). The `kabsch.solve` span.
+    GPU tensors go to K5 (or raise); CPU tensors take the plain version."""
     with _SOLVE:
-        wsum = torch.clamp(w.sum(-1), min=1e-12)[..., None]
-        cs = (src * w[..., None]).sum(-2) / wsum
-        cd = (dst * w[..., None]).sum(-2) / wsum
-        S = ((src - cs[..., None, :]) * w[..., None]).transpose(-1, -2) \
-            @ (dst - cd[..., None, :])
-        u, _, vt = torch.linalg.svd(S)
-        v = vt.transpose(-1, -2)
-        det = torch.linalg.det(v @ u.transpose(-1, -2))
-        d = torch.stack([torch.ones_like(det), torch.ones_like(det), det],
-                        -1)
-        R = (v * d[..., None, :]) @ u.transpose(-1, -2)
-        t = cd - (R @ cs[..., None])[..., 0]
-    return R, t
+        if src.is_cuda:
+            return solve_rt_cuda(src, dst, w)
+        return _solve_rt_plain(src, dst, w)
 
 
 def weighted_kabsch(src, dst, weight, valid, num_iter: int = TRIM_SOLVES,
@@ -82,7 +138,7 @@ def weighted_kabsch(src, dst, weight, valid, num_iter: int = TRIM_SOLVES,
 
     inlier = w_masked > 0.5
     top_idx = top_k(w_masked, min(_TOPK_SEED, k))[1]
-    inlier[top_idx] = True
+    inlier.index_fill_(0, top_idx, True)   # no host copy: capturable
     inlier = inlier & valid
 
     stopped = torch.zeros((), dtype=torch.bool, device=src.device)

@@ -33,6 +33,20 @@ USE_FUSED_MOMENTS = False
 USE_FUSED_SWEEP = False
 
 
+#: +z per (device, dtype): built once (a copy from the host, which syncs),
+#: so that no call inside a CUDA graph capture copies from the host
+_UP: dict = {}
+
+
+def _up(dtype, device) -> torch.Tensor:
+    key = (torch.device(device), dtype)
+    up = _UP.get(key)
+    if up is None:
+        up = _UP.setdefault(key, torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
+                                              device=device))
+    return up
+
+
 def dot3(a, b):
     """((a0 b0 + a1 b1) + a2 b2) over the last axis."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
@@ -74,7 +88,7 @@ def smallest_eigvec_3x3(C: torch.Tensor) -> torch.Tensor:
     v = torch.gather(crosses, -2,
                      best[..., None, None].expand(*best.shape, 1, 3))[..., 0, :]
     v = v / torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=1e-20))
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=C.dtype, device=C.device)
+    up = _up(C.dtype, C.device)
     return torch.where((p2 < 1e-12)[..., None], up.expand_as(v), v).float()
 
 
@@ -102,7 +116,7 @@ def normals_from_moments(c, cnt, s, S6) -> torch.Tensor:
     mu_c = s / cnt[..., None] - c
     cov = cen / cnt[..., None, None] - mu_c[..., :, None] * mu_c[..., None, :]
     n = smallest_eigvec_3x3(cov)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    up = _up(n.dtype, n.device)
     return torch.where((cnt <= 2)[..., None], up.expand_as(n), n)
 
 

@@ -10,7 +10,8 @@ several candidates or device-assembled map tiles, loop scoring and the
 information matrix alone. Token counts are padded up to `reg_buckets`, and
 map tiles to `tile_member_buckets`, as in the JAX package, so registration
 sees the same shapes and pair counts. Where the JAX package compiles one
-program per bucket, the port calls plain functions.
+program per bucket, the port calls plain functions; on a card, extraction
+and registration replay from a CUDA graph per shape (utils/graphs.py).
 
 Per-scan arrays (padded descriptors, their validity, the point cloud and
 its validity) are kept on the device in a byte-budgeted LRU cache keyed by
@@ -43,9 +44,10 @@ from deeppointmap_tpu_torch import kernels
 from deeppointmap_tpu_torch.data.preprocess import preprocess
 from deeppointmap_tpu_torch.models.decoder import Decoder, num_pairs_for
 from deeppointmap_tpu_torch.models.encoder import Encoder
+from deeppointmap_tpu_torch.ops import normals
 from deeppointmap_tpu_torch.ops.infomat import information_matrix
 from deeppointmap_tpu_torch.ops.neighbors import f32
-from deeppointmap_tpu_torch.utils import precision, timer
+from deeppointmap_tpu_torch.utils import graphs, precision, timer
 
 logger = logging.getLogger(__name__)
 
@@ -151,6 +153,7 @@ class InferenceEngine:
         self.decoder.load_state_dict(dec_state)
         self.encoder.to(self.device).eval()
         self.decoder.to(self.device).eval()
+        self._graphs = graphs.Graphs()
         e = args.encoder
         self.n_tokens = int(e.npoint[len(e.npoint) - 1 - e.upsample_layers])
         # device cache of per-scan tensors, least recently used first; the
@@ -337,7 +340,16 @@ class InferenceEngine:
 
     def _extract_impl(self, points, valid):
         """-> (descriptors (B, K, C+3) with xyz in meters, descriptor
-        validity (B, K), filtered point validity (B, P))."""
+        validity (B, K), filtered point validity (B, P)): `_extract_eager`,
+        replayed from a CUDA graph on the card (utils/graphs.py)."""
+        return self._graphs(self._extract_eager, (points, valid),
+                            ("extract", self.matmul_policy,
+                             normals.USE_FUSED_MOMENTS,
+                             normals.USE_FUSED_SWEEP))
+
+    def _extract_eager(self, points, valid):
+        """`_extract_impl`'s program: the device filter chain and the
+        encoder, run op by op."""
         points, valid, sweep = self._maybe_preprocess(points, valid)
         coor, fea, out_valid = self.encoder(points, valid, sweep=sweep)
         desc = torch.cat([fea, coor * self.coor_scale], dim=-1)

@@ -13,6 +13,11 @@ pipelined mode's stage threads accumulate nothing.
 `add(tally)` hands a tally made elsewhere (another thread's scope, the
 training batch producer's) to the scope open on the calling thread.
 
+`count(name)` adds 1 to the tally of the scope open on the calling
+thread, under its name (no scope: nothing): a count travels beside the
+spans' seconds to the same sink (the engine's CUDA graphs count their
+replays and eager calls so).
+
 Totals are inclusive: a span's seconds include those of every span opened
 inside it. A parent's self time is its total minus its children's totals
 (`slam.odometry` holds `engine.wait` and `kabsch.solve`).
@@ -146,6 +151,14 @@ def add(tally: Dict[str, float]) -> None:
     if sc is not None:
         for name, seconds in tally.items():
             sc.tally[name] = sc.tally.get(name, 0.0) + seconds
+
+
+def count(name: str) -> None:
+    """Add 1 to the tally of the scope open on this thread, under `name`
+    (no scope: nothing)."""
+    sc = _SCOPE.get()
+    if sc is not None:
+        sc.tally[name] = sc.tally.get(name, 0) + 1
 
 
 @contextmanager

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the four kernels of the PyTorch/CUDA port (K1 FPS, K2 kNN + moments,
-K3 radius moments, K4 fused sweep) at the shapes of the main path, on one
-NVIDIA GPU, and compare source trees.
+"""Time the kernels of the PyTorch/CUDA port (K1 FPS, K2 kNN + moments,
+K3 radius moments, K4 fused sweep, K5 Kabsch solve) at the shapes of the
+main path, on one NVIDIA GPU, and compare source trees.
 
     python3 scripts/bench_torch_kernels.py [--out DIR]
     python3 scripts/bench_torch_kernels.py --root A --root B --root B --root A
 
 Without `--root` the kernels of this checkout are built, held against their
 plain versions (K1: identical indices; K2 and K4: identical indices and
-distances; K3: cnt identical; `--no-check` skips it) and timed: a run of
+distances; K3: cnt identical; K5: within `chip_smoke.KABSCH_TOL` of the
+plain solve in float64; `--no-check` skips it) and timed: a run of
 launches between one pair of CUDA events (`chip_smoke.timed`),
 milliseconds a launch and the wrapper's host microseconds. K2's wide
 rows (k 42-512 and the threshold's neighbours, which no path runs) are
@@ -54,6 +55,10 @@ WIDE_K = (44, 46, 48, 50, 56, 65, 96, 128, 256, 512)
 #: (`slam_b`)
 SWEEP_SHAPES = [(41, 0.5), (17, 0.5), (41, 0.0), (1, 0.0)]
 MOMENTS_RADIUS = 0.5
+#: (B, K) of K5: the RANSAC hypotheses, then the refine solves of the
+#: 256-token odometry pair and of the 1024-, 2048- and 4096-token tiles
+#: against 256 tokens (2 x num_pairs pairs)
+KABSCH_SHAPES = [(1024, 3), (1, 256), (1, 640), (1, 1152), (1, 2176)]
 
 
 def wide_shapes(k_wide: int) -> list:
@@ -173,6 +178,22 @@ def measure(check: bool) -> dict:
             scan, scan_v, k, radius), 20)
         rows.append(dict(kernel="sweep", shape=[1, cs.N_PAD, k, radius],
                          ms=ms, host_us=host))
+    if getattr(kernels, "KABSCH", None) is not None:  # a root may predate K5
+        from deeppointmap_tpu_torch.ops import kabsch
+
+        for j, (b, k) in enumerate(KABSCH_SHAPES):
+            if check:
+                en = cs.check_kabsch(torch, kabsch, b, k, j)
+                rows.append(dict(kernel="kabsch", **{
+                    key: en[key] for key in ("shape", "ms", "host_us",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}))
+                continue
+            src, dst, w = cs.kabsch_inputs(torch, b, k, j)
+            ms, host = cs.timed(torch, lambda: kabsch.solve_rt_cuda(
+                src, dst, w), 20)
+            rows.append(dict(kernel="kabsch", shape=[b, k], ms=ms,
+                             host_us=host))
     return dict(card=smi, build_log="\n".join(
         line for kern in kernels.ALL
         for line in kern.build_log.splitlines() if "registers" in line

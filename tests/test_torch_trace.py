@@ -145,6 +145,36 @@ def test_threads_keep_their_scopes_apart():
     assert set(tallies["a"]) == {"a"} and set(tallies["b"]) == {"b"}
 
 
+def test_count_inside_a_scope_only():
+    """`count` adds 1 a call under its name to the scope open on its
+    thread, beside the spans' seconds; outside a scope it adds nothing;
+    another thread's counts stay in that thread's scope."""
+    timer.count("nowhere")
+    with timer.scope("frame", 1) as tally:
+        for _ in range(3):
+            timer.count("engine.graph.replay")
+        timer.count("engine.graph.eager")
+        with timer.span("inside"):
+            pass
+        other = {}
+
+        def counted():
+            timer.count("engine.graph.replay")        # no scope: nothing
+            with timer.scope("frame", 2) as t:
+                timer.count("engine.graph.eager")
+            other.update(t)
+        th = threading.Thread(target=counted)
+        th.start()
+        th.join(timeout=30)
+        assert not th.is_alive()
+    timer.count("nowhere")
+    assert tally["engine.graph.replay"] == 3
+    assert tally["engine.graph.eager"] == 1
+    assert set(tally) == {"engine.graph.replay", "engine.graph.eager",
+                          "inside"}
+    assert other == {"engine.graph.eager": 1}
+
+
 # --------------------------------------------------------------- the SLAM
 @pytest.fixture(scope="module")
 def demo_cfg(tmp_path_factory):
@@ -168,8 +198,9 @@ def _system(cfg):
 def test_slam_frames_record_their_spans(demo_cfg):
     """Each frame with a candidate records slam.odometry, engine.wait and
     kabsch.solve once, under their names; the frame without one records
-    extract; the sequential `odometer` record is gone; each frame's
-    engine waits and solves lie inside its spans' totals."""
+    extract (and its extraction's eager call, utils/graphs.py); the
+    sequential `odometer` record is gone; each frame's engine waits and
+    solves lie inside its spans' totals."""
     system, agent = _system(demo_cfg)
     frames = []
     orig = system.result_logger.record_perf
@@ -181,7 +212,7 @@ def test_slam_frames_record_their_spans(demo_cfg):
     for i in range(N_FRAMES):
         frames.append({})
         system.step(agent[i])
-    assert set(frames[0]) == {"extract", "engine.wait"}
+    assert set(frames[0]) == {"extract", "engine.wait", "engine.graph.eager"}
     for f in frames[1:]:
         assert {"slam.odometry", "engine.wait", "kabsch.solve",
                 "mapping"} <= set(f), sorted(f)
@@ -192,6 +223,31 @@ def test_slam_frames_record_their_spans(demo_cfg):
     assert len(times["slam.odometry"]) == N_FRAMES - 1
     assert len(times["engine.wait"]) == N_FRAMES
     assert "odometer" not in times
+
+
+def test_cpu_frames_count_eager_programs(demo_cfg):
+    """On the CPU every extraction and registration runs eagerly: a frame
+    counts `engine.graph.eager` once for each (the first frame's lone
+    extraction, then at least the odometry step's two) and never
+    `engine.graph.replay`; the engine and the decoder capture nothing."""
+    system, agent = _system(demo_cfg)
+    frames = []
+    orig = system.result_logger.record_perf
+
+    def record_perf(name, seconds):
+        frames[-1][name] = seconds
+        orig(name, seconds)
+    system.result_logger.record_perf = record_perf
+    for i in range(N_FRAMES):
+        frames.append({})
+        system.step(agent[i])
+    assert frames[0]["engine.graph.eager"] == 1
+    for f in frames[1:]:
+        assert f["engine.graph.eager"] >= 2
+        assert isinstance(f["engine.graph.eager"], int)
+    assert not any("engine.graph.replay" in f for f in frames)
+    assert len(system.engine._graphs) == 0
+    assert len(system.engine.decoder._graphs) == 0
 
 
 def test_pipelined_threads_accumulate_nothing(demo_cfg):
@@ -266,6 +322,25 @@ def test_slam_readers(metric):
     parent = dict(rec, stage_s={"mapping": 0.4, "loop_closure": 0.3,
                                 "extract": 0.6, "odometer": 0.01})
     assert _read(metric, parent) is None
+    assert _read(metric, dict(rec, driver="train")) is None
+    assert _read(metric, {}) is None
+
+
+def test_graph_replay_share_reader():
+    """engine.graph_replay_share: 100 x replays / (replays + eager calls)
+    from the window's summed counts; None on the parent's records (no
+    counts), with no call at all, and outside the SLAM cell."""
+    metric = "engine.graph_replay_share"
+    rec = dict(driver="slam", frames=8,
+               stage_s={"mapping": 0.4, "engine.graph.replay": 57,
+                        "engine.graph.eager": 3})
+    assert _read(metric, rec) == pytest.approx(95.0)
+    only_eager = dict(rec, stage_s={"engine.graph.eager": 12})
+    assert _read(metric, only_eager) == pytest.approx(0.0)
+    parent = dict(rec, stage_s={"mapping": 0.4, "kabsch.solve": 0.2})
+    assert _read(metric, parent) is None
+    assert _read(metric, dict(rec, stage_s={"engine.graph.replay": 0,
+                                            "engine.graph.eager": 0})) is None
     assert _read(metric, dict(rec, driver="train")) is None
     assert _read(metric, {}) is None
 
