@@ -33,6 +33,12 @@ USE_FUSED_MOMENTS = False
 USE_FUSED_SWEEP = False
 
 
+def kernel_key() -> tuple:
+    """The switches above as they stand: the part of a program's key
+    (utils/graphs.py) that this module decides."""
+    return USE_FUSED_MOMENTS, USE_FUSED_SWEEP
+
+
 #: +z per (device, dtype): built once (a copy from the host, which syncs),
 #: so that no call inside a CUDA graph capture copies from the host
 _UP: dict = {}

@@ -344,8 +344,7 @@ class InferenceEngine:
         replayed from a CUDA graph on the card (utils/graphs.py)."""
         return self._graphs(self._extract_eager, (points, valid),
                             ("extract", self.matmul_policy,
-                             normals.USE_FUSED_MOMENTS,
-                             normals.USE_FUSED_SWEEP))
+                             *normals.kernel_key()))
 
     def _extract_eager(self, points, valid):
         """`_extract_impl`'s program: the device filter chain and the

@@ -8,14 +8,17 @@ graph, so that its few hundred kernels cost one launch of the host's:
 
 - Key: the program's own key (its static arguments and the switches
   that change its kernels), the arguments' shapes and dtypes, and the
-  current CUDA stream. A stage thread or an agent on a stream of its own
-  gets graphs of its own, so no two streams share a graph's buffers; the
-  graphs of one stream share one memory pool (replays on one stream never
-  overlap, so one graph may reuse another's scratch).
-- A key's first call runs eagerly. Its second warms the program up on a
-  side stream, captures it there, then replays it; later calls only
-  replay. A shape seen once costs no capture. Captures are taken one at a
-  time.
+  current CUDA stream.
+- A key's first call runs eagerly. Its second warms the program up on the
+  object's capture stream, captures it there, then replays it; later calls
+  only replay. A shape seen once costs no capture.
+- An object's graphs share one memory pool: a graph captured later may
+  keep its static outputs in scratch that an earlier graph writes when it
+  replays. So one lock holds each call from the copies in to the copies
+  out (and each capture), and each replay waits on the device for the
+  copies out of the one before it, on whatever stream or thread that ran:
+  the pipelined mode's stage threads and the agents of one process all
+  replay on the default stream, and no two replays of an object overlap.
 - A replay copies the arguments into the graph's static inputs (a host
   int becomes a device scalar, filled in place), replays on the current
   stream, and returns fresh copies of the static outputs: a caller may
@@ -62,12 +65,11 @@ def _engaged(args) -> bool:
 
 
 class _Entry:
-    __slots__ = ("graph", "inputs", "outputs", "launched", "lock")
+    __slots__ = ("graph", "inputs", "outputs", "launched")
 
     def __init__(self):
         self.graph = None
         self.inputs = self.outputs = self.launched = None
-        self.lock = threading.Lock()
 
 
 class Graphs:
@@ -77,10 +79,11 @@ class Graphs:
 
     def __init__(self):
         self._entries: Dict[tuple, _Entry] = {}
-        #: per (device, stream): the graphs' memory pool and capture stream
-        self._streams: Dict[tuple, tuple] = {}
+        #: on first capture: the memory pool, the capture stream (one, so
+        #: that its cuBLAS workspace is made once) and the event recorded
+        #: after each replay's copies out
+        self._pool = self._side = self._done = None
         self._lock = threading.Lock()
-        self._capturing = threading.Lock()
 
     def __len__(self) -> int:
         with self._lock:
@@ -93,33 +96,19 @@ class Graphs:
             return fn(*args)
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
         stream = torch.cuda.current_stream(dev)
-        where = (dev.index, stream.cuda_stream)
-        full = (key, where, tuple(_signature(a) for a in args))
+        full = (key, dev.index, stream.cuda_stream,
+                tuple(_signature(a) for a in args))
         with self._lock:
             entry = self._entries.get(full)
-            if entry is None:
-                self._entries[full] = _Entry()
-        if entry is None:
-            timer.count(EAGER)
-            return fn(*args)
-        with entry.lock:
-            if entry.graph is None:
-                with self._capturing:
-                    self._capture(entry, fn, args, stream, where)
-                timer.count(EAGER)
-            else:
-                timer.count(REPLAY)
-            return self._replay(entry, args)
-
-    def _stream_state(self, where: tuple, dev) -> tuple:
-        """(memory pool, capture stream) of the graphs of one stream: one
-        capture stream, so that its cuBLAS workspace is made once."""
-        with self._lock:
-            state = self._streams.get(where)
-            if state is None:
-                state = self._streams[where] = (
-                    torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev))
-            return state
+            if entry is not None:
+                captured = entry.graph is not None
+                if not captured:
+                    self._capture(entry, fn, args, stream)
+                timer.count(REPLAY if captured else EAGER)
+                return self._replay(entry, args, stream)
+            self._entries[full] = _Entry()
+        timer.count(EAGER)
+        return fn(*args)
 
     @staticmethod
     def _fill(inputs, args) -> None:
@@ -129,25 +118,30 @@ class Graphs:
             elif a is not None:
                 buf.fill_(int(a))
 
-    def _capture(self, entry: _Entry, fn, args, stream, where) -> None:
-        """Warm `fn` up on the capture stream and capture it there into
-        `entry` (the inputs are filled on the caller's stream, so that the
-        capture stream reads nothing the caller may free). The warm-up's
-        kernel launches are not counted: the call counts its replay's."""
+    def _capture(self, entry: _Entry, fn, args, stream) -> None:
+        """Under the lock: warm `fn` up on the capture stream, on static
+        inputs filled from `args`, and capture it there into `entry`. The
+        warm-up's kernel launches are not counted: the call counts its
+        replay's."""
         dev = stream.device
-        pool, side = self._stream_state(where, dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(dev)
+            self._done = torch.cuda.Event()
         inputs = [a if a is None else
                   torch.empty_like(a) if isinstance(a, torch.Tensor)
                   else torch.empty((), dtype=torch.int64, device=dev)
                   for a in args]
         self._fill(inputs, args)
+        side = self._side
         side.wait_stream(stream)
+        side.wait_event(self._done)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             with kernels.recording():
                 fn(*inputs)
             with kernels.recording() as launched:
-                graph.capture_begin(pool=pool,
+                graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
                 try:
                     outputs = fn(*inputs)
@@ -157,8 +151,14 @@ class Graphs:
         entry.inputs, entry.outputs = inputs, tuple(outputs)
         entry.launched, entry.graph = launched, graph
 
-    def _replay(self, entry: _Entry, args) -> Tuple[torch.Tensor, ...]:
+    def _replay(self, entry: _Entry, args, stream
+                ) -> Tuple[torch.Tensor, ...]:
+        """Under the lock: after the previous replay's copies out, copy
+        in, replay and copy out on `stream`."""
+        stream.wait_event(self._done)
         self._fill(entry.inputs, args)
         entry.graph.replay()
         kernels.add_launches(entry.launched)
-        return tuple(o.clone() for o in entry.outputs)
+        out = tuple(o.clone() for o in entry.outputs)
+        self._done.record(stream)
+        return out

@@ -14,10 +14,19 @@ card, on the benchmark's own cells (BENCHMARK.json, benchmark/):
   the per-layer metrics, and the share of the window frames' wall time
   (`frame_s`) that `slam.odometry` + `mapping` + `loop_closure` +
   `extract` cover, and of the steps' `batch_s` that `train.read` +
-  `train.transform` + `train.assemble` cover.
+  `train.transform` + `train.assemble` cover;
+- `graphs`: the device kernels of the engine's two programs
+  (utils/graphs.py) on the inputs of a whole `slam_loop2` session after
+  its warm session: one extraction and one registration of each key the
+  session ran, each run eagerly with the torch solve (`torch.linalg.svd`
+  + `det`, as before K5), eagerly with K5, and replayed from its graph,
+  in one profiled session; the kernel names whose counts differ, and the
+  calls a frame of each key, which give the change in device kernels a
+  frame (`engine.launches_per_frame`).
 
     python3 scripts/span_check_torch.py [--out DIR] \\
-        [--phases cost,sync,cover] [--seed N] [--steps 5] [--seconds 12]
+        [--phases cost,sync,cover,graphs] [--seed N] [--steps 5] \\
+        [--seconds 12]
 
 Writes <out>/span_check.json and prints it as the last line of standard
 output. Needs a card; `--device cpu --root R --bench B` rehearses it on
@@ -241,6 +250,124 @@ def sync_train(cell, seed: int, steps: int, device, say) -> dict:
                 per_step={k: v / steps for k, v in counts.items()})
 
 
+def graph_kernels(cell, seed: int, device, say) -> dict:
+    """The `graphs` phase (module docstring)."""
+    from benchmark.drivers import slam as dslam
+    from deeppointmap_tpu_torch.ops import kabsch
+    from deeppointmap_tpu_torch.pipeline.common import load_weights
+    from deeppointmap_tpu_torch.pipeline.infer import (
+        device_preprocess_config)
+    from deeppointmap_tpu_torch.slam.engine import InferenceEngine
+    from deeppointmap_tpu_torch.utils import graphs
+
+    cfg, traf = cell.config, cell.traffic
+    out_dir = os.path.join(scans.CACHE, "span_check_graphs")
+    args = dslam.build_args(cfg, out_dir)
+    root = dslam.drive(seed, traf)
+    engine = InferenceEngine(args, *load_weights(
+        args, os.path.join(REPO, cfg["weights"])), device=device,
+        preprocess_cfg=device_preprocess_config(args))
+    dec = engine.decoder
+    runner = dslam.Runner(args, engine, root, out_dir, traced=False)
+    runner.session(float("inf"), max_frames=int(traf["warm_frames"]))
+    calls, last = collections.Counter(), {}
+
+    def extract(points, valid):
+        key = ("extract", tuple(points.shape))
+        calls[key] += 1
+        last[key] = (points, valid)
+        return type(engine)._extract_impl(engine, points, valid)
+
+    def registration(src, dst, sv, dv, num_pairs, num_pairs_actual=None):
+        key = ("registration", tuple(src.shape), tuple(dst.shape),
+               num_pairs)
+        calls[key] += 1
+        last[key] = (src, dst, sv, dv, num_pairs, num_pairs_actual)
+        return type(dec).registration(dec, src, dst, sv, dv, num_pairs,
+                                      num_pairs_actual)
+
+    engine._extract_impl, dec.registration = extract, registration
+    runner.sessions.clear()
+    try:
+        runner.session(float("inf"))
+    finally:
+        del engine._extract_impl, dec.registration
+    frames = runner.sessions[-1]["fed"]
+
+    @contextlib.contextmanager
+    def torch_solve():
+        k5 = kabsch.solve_rt_cuda
+        kabsch.solve_rt_cuda = kabsch._solve_rt_plain
+        try:
+            yield
+        finally:
+            kabsch.solve_rt_cuda = k5
+
+    ways = ("torch_solve", "eager", "replay")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    replayed = {}
+    prof = btrace.profiler()
+    with torch.inference_mode(), prof:
+        for i, (key, a) in enumerate(sorted(last.items())):
+            eager = engine._extract_eager if key[0] == "extract" \
+                else dec._registration_eager
+            graphed = engine._extract_impl if key[0] == "extract" \
+                else dec.registration
+            for how in ways:
+                sync()
+                with btrace.span(f"{i}.{how}", True):
+                    if how == "torch_solve":
+                        with torch_solve():
+                            eager(*a)
+                    elif how == "eager":
+                        eager(*a)
+                    else:
+                        with timer.scope("graphs", 0) as tally:
+                            graphed(*a)
+                        replayed[i] = tally.get(graphs.REPLAY, 0) == 1
+                    sync()
+    spans, device_ev = [], []
+    for e in prof.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            if name.startswith("bench."):
+                spans.append((e.start_ns(), e.end_ns(), name[6:]))
+        elif not (e.is_user_annotation() or name.startswith("bench.")):
+            device_ev.append((e.start_ns(), name))
+    by_span = collections.defaultdict(collections.Counter)
+    for t, name in device_ev:
+        for s0, s1, label in spans:
+            if s0 <= t <= s1:
+                by_span[label][name] += 1
+                break
+    copy = lambda n: n.startswith(("Memcpy", "Memset"))
+    out, fewer = [], 0.0
+    for i, key in enumerate(sorted(last)):
+        counts = {how: by_span[f"{i}.{how}"] for how in ways}
+        kern = {how: sum(n for k, n in c.items() if not copy(k))
+                for how, c in counts.items()}
+        differ = lambda a, b: {btrace.short(k, 64): counts[b][k] -
+                               counts[a][k]
+                               for k in set(counts[a]) | set(counts[b])
+                               if counts[a][k] != counts[b][k]}
+        per_frame = calls[key] / max(frames, 1)
+        fewer += per_frame * (kern["torch_solve"] - kern["replay"])
+        out.append(dict(
+            key=[str(x) for x in key], calls=calls[key],
+            calls_per_frame=per_frame, replayed=replayed.get(i, False),
+            kernels=kern,
+            copies={how: sum(n for k, n in c.items() if copy(k))
+                    for how, c in counts.items()},
+            replay_vs_eager=differ("eager", "replay"),
+            eager_vs_torch_solve=dict(sorted(
+                differ("torch_solve", "eager").items(),
+                key=lambda kv: kv[1])[:12])))
+    say(f"graphs: {frames} frames, {len(out)} keys, "
+        f"{fewer:.1f} fewer kernels a frame")
+    return dict(frames=frames, keys=out, fewer_kernels_per_frame=fewer)
+
+
 def cover(cell, seed: int, seconds: float, device, say) -> dict:
     """A traced window through the cell's driver (the check after it
     included): per-layer metrics and the spans' coverage."""
@@ -299,6 +426,8 @@ def main(argv=None) -> dict:
     if "sync" in phases:
         res["sync_slam"] = sync_slam(slam, a.seed, device, say)
         res["sync_train"] = sync_train(train, a.seed, a.steps, device, say)
+    if "graphs" in phases:
+        res["graphs"] = graph_kernels(slam, a.seed, device, say)
     if "cover" in phases:
         for name, cell in (("cover_slam", slam), ("cover_train", train)):
             res[name] = cover(cell, a.seed, a.seconds, device, say)

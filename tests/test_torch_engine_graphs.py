@@ -345,6 +345,57 @@ def test_two_threads_two_streams(engine):
 
 
 @torch.inference_mode()
+def test_two_threads_default_stream_two_keys(engine):
+    """Two threads on the default stream (as the pipelined mode's stages
+    and the agents of one process run) replay two registration keys that
+    share the decoder's memory pool, interleaved: every result equals the
+    eager run bit for bit, so neither replay writes over the other's
+    outputs before they are copied out."""
+    dec = engine.decoder
+    dec._graphs = graphs.Graphs()
+    regs, k = _reg_inputs(engine, 4)
+    m = regs[0][0].shape[0]
+    half = m // 2
+    keys = [(r[:4], k, r[4]) for r in regs[:2]] + [
+        ((r[0], r[1][:half].contiguous(), r[2], r[3][:half].contiguous()),
+         num_pairs_for(m, half),
+         num_pairs_for(int(r[2].sum()), int(r[3][:half].sum())))
+        for r in regs[2:]]
+    jobs = [keys[:2], keys[2:]]     # thread i: key i, two inputs
+    want = [[dec._registration_eager(*a, n, act) for a, n, act in job]
+            for job in jobs]
+    for job in jobs:                # captured before the threads start
+        for a, n, act in job:
+            dec.registration(*a, n, act)
+    assert len(dec._graphs) == 2
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def work(i):
+        try:
+            with torch.inference_mode():
+                for rep in range(40):
+                    j = rep % 2
+                    a, n, act = jobs[i][j]
+                    got[i].append((j, dec.registration(*a, n, act)))
+        except Exception as e:      # noqa: BLE001 - handed to the test
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert len(dec._graphs) == 2
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 40
+        for j, out in got[i]:
+            _same(out, want[i][j])
+
+
+@torch.inference_mode()
 def test_launch_counts_after_replays(engine):
     """A replayed program counts its hand-written kernels' launches as an
     eager call does: per call and per shape."""
